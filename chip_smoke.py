@@ -5,17 +5,20 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. checks: a CUDA device, the card's name and power limit (nvidia-smi),
-     both kernel libraries built from cmfem_tpu_torch/csrc/, one after the
-     other (build time and ptxas registers/spills printed);
+     the three kernel libraries built from cmfem_tpu_torch/csrc/, one nvcc
+     each, all started together (build time and ptxas registers/spills
+     printed);
   2. the sum-factorization kernel against its plain version, orders 1-4 on
      the (3,4,5) and (6,6,6) grids: the constant-coefficient CDR form
      (z-periodic and full D), the form with kappa = 0.1 + z^2 (full D that
      varies by element along z) and the same form on a distorted lattice
      (full D that varies along x, y and z); float64 to 1e-12 max|y|,
      float32 to 1e-5 max|y| (sums taken in another order, <= 125 terms per
-     output);
-  3. the B^T D B kernel against its plain version: hexes at orders 1-3 on
-     (3,4,5) and quads at orders 1-3 on (7,5), variable conductivity,
+     output); on the same operators (phase 8a) the z-chain kernel against
+     its plain version on the same x/y fields, and the whole
+     ``bind_zchain`` apply against ``bind()``, to the same tolerances;
+  3. the B^T D B kernel against its plain version: hexes at orders 1-4 on
+     (3,4,5) and quads at orders 1-4 on (7,5), variable conductivity,
      float64 to 1e-12 max|y|, float32 to 1e-5 max|y| (each output sums
      m*nq <= 256 products twice, in another order);
   4. slice 1's main path: ``entry(n=48, order=2)`` (912,673 DOFs, float32),
@@ -33,16 +36,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      against its plain chain at n=48 (1e-12 max|y|), Jacobi-PCG at n=48,
      one float32 MG solve at n=48 (finite, within 1e-3 of the float64
      solution);
-  7. timings: median apply of each kernel and its plain version at the
-     48^3 shapes (CUDA events, in turns), with the B^T D B gather and
-     scatter outside and included; step, solve and setup times; peak
-     device memory.
-Each main path (4, 5, 6) runs with every launch count set to 0 just before
-it and read just after.  The last lines are the kernels' JSON record, the
-card's name and power limit, and {"ok": true, "device": {...}}.  Imports no
-JAX.
+  7. timings at the 48^3 shapes: each kernel and its plain version, in
+     turns, as device time per call (a CUDA graph of 10 calls replayed
+     between two events) and one kernel call with its host enqueue; the
+     B^T D B applies with their gather and scatter (one call, events);
+     step, solve and setup times; peak device memory;
+  8. slice 3: (b) ``operator_paths(n=48, order)`` for orders 2, 3 and 4,
+     float32: every path's apply of one seeded vector agrees with the
+     plain ``sumfact`` chain to 1e-5 max|y| and moves its own launch
+     counter; median apply ms of one call (CUDA events, in turns against
+     ``sumfact``) and MDOF/s of each path; the z-chain kernel alone on its
+     x/y fields beside its plain version, and B1 at orders 3 and 4 beside
+     its plain version (timed as in 7); the element-local kernel's device
+     time on Dz and on full D beside its bound; peak
+     device memory of each order; (c) the BE steps at 48^3, orders 3 and
+     4: ``vc_entry`` through ``best_bind`` (full-D kernel) and through
+     ``bind_zchain()``, ``entry`` through ``best_bind`` (Dz kernel) and
+     through ``bind_zchain(use_periodic=True)``: each converges
+     (|M(B-Ax)|/|MB| <= 2e-6; a GMRES that stops on stagnation at the
+     float32 floor 16 eps = 1.907e-6 counts if it meets that) and the two
+     solutions of a form agree to 1e-4 in the 2-norm.
+Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
+to 0 just before it and read just after.  The last lines are the kernels'
+JSON record (each kernel's launches on the main paths, error, times, and
+its bound: the larger of the bytes it must move over 3.35 TB/s and its
+FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates), the card's
+name and power limit, and {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -64,17 +86,30 @@ from cmfem_tpu_torch.core import (  # noqa: E402
     make_cartesian_mesh_3d,
 )
 from cmfem_tpu_torch.entry import (  # noqa: E402
-    BETA, DT, OPERATORS, entry, mg_solve, spd_step, vc_entry,
+    BETA, DT, OPERATORS, PATHS, entry, mg_solve, operator_paths, spd_step,
+    vc_entry,
 )
 from cmfem_tpu_torch.kernels import btdb as kbtdb  # noqa: E402
 from cmfem_tpu_torch.kernels import build as kbuild  # noqa: E402
 from cmfem_tpu_torch.kernels import sumfact as ksum  # noqa: E402
+from cmfem_tpu_torch.kernels import zchain as kz  # noqa: E402
 from cmfem_tpu_torch.ops import BilinearForm, SpaceOps  # noqa: E402
 from cmfem_tpu_torch.ops.partial import PAOperator  # noqa: E402
 from cmfem_tpu_torch.ops.sumfact import SumFactoredOperator  # noqa: E402
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 F32 = torch.float32
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3 (NVIDIA's data sheet)
+F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores (data sheet)
+# the launch counters each operator_paths path must move, and only they
+PATH_COUNTERS = {
+    "sumfact": set(), "sumfact-periodic": set(),
+    "sumfact-fused": {"sumfact", "sumfact_fulld"},
+    "sumfact-zfma-periodic": {"sumfact"},
+    "sumfact-zchain": {"zchain"},
+    "sumfact-zchain-periodic": {"zchain", "zchain_periodic"},
+    "structured-pa": {"btdb"}, "pa": {"btdb"},
+}
 
 
 def log(msg):
@@ -126,6 +161,47 @@ def compare(fk, fp, *args):
     return rel_err(yk, yp), float((yk - yp).abs().max())
 
 
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def sumfact_flops(op):
+    """FLOPs of one sum-factorized apply, counted as bench.py counts them:
+    the pointwise D stage and 2 (p+1) FLOPs per output of each 1D
+    contraction, forward and transposed."""
+    p1, K = op.p + 1, op.Kz * op.Ky * op.Kx
+    contr = 2 * p1 * (2 * op.Kx * op.NY * op.NZ + 4 * op.Kx * op.Ky * op.NZ
+                      + 6 * K)
+    return 2 * op.D.shape[0] * K + 2 * contr
+
+
+def zchain_flops(op):
+    """FLOPs of the z-chain alone: four z contractions in, the D stage,
+    four transposed contractions out, each 2 (p+1) per quadrature point."""
+    return (16 * (op.p + 1) + 2 * op.D.shape[0]) * op.Kz * op.Ky * op.Kx
+
+
+def btdb_flops(BG, Dflat):
+    """FLOPs of one B^T D B apply: two dense (m nq, nd) products and the
+    m x m block per quadrature point, per element."""
+    (mm, nq, ne), (mnq, nd) = Dflat.shape, BG.shape
+    return ne * (4 * mnq * nd + 2 * mm * nq)
+
+
+def stacked(fn):
+    """fn's tuple of outputs as one tensor (for compare)."""
+    return lambda *args: torch.stack(fn(*args))
+
+
 def median_ms(fn, reps=50, warmup=10):
     for _ in range(warmup):
         fn()
@@ -141,22 +217,55 @@ def median_ms(fn, reps=50, warmup=10):
     return statistics.median(ts)
 
 
-def in_turns(kernel, plain):
+def graph_ms(fn, calls=10, reps=20):
+    """Median device ms per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed between two events, so the host's enqueue time
+    (the wrapper's checks, ctypes) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ts = []
+    for _ in range(reps + 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(ts[2:])
+
+
+def in_turns(kernel, plain, reps=50, graph=False):
     """Median ms of the kernel and the plain call, timed plain, kernel,
-    kernel, plain: (kernel list, plain list)."""
+    kernel, plain: (kernel list, plain list).  With ``graph`` each is the
+    device time per call of graph_ms, else one call between two events
+    (host enqueue included)."""
     t = {"k": [], "p": []}
     for name in ("p", "k", "k", "p"):
-        t[name].append(median_ms(kernel if name == "k" else plain))
+        fn = kernel if name == "k" else plain
+        t[name].append(graph_ms(fn) if graph else
+                       median_ms(fn, reps=reps, warmup=min(10, reps)))
     return t["k"], t["p"]
 
 
 def reset_counts():
     ksum.launches = ksum.launches_fulld = kbtdb.launches = 0
+    kz.launches = kz.launches_periodic = 0
 
 
 def counts():
     return {"sumfact": ksum.launches, "sumfact_fulld": ksum.launches_fulld,
-            "btdb": kbtdb.launches}
+            "btdb": kbtdb.launches, "zchain": kz.launches,
+            "zchain_periodic": kz.launches_periodic}
 
 
 def timed(fn):
@@ -172,21 +281,32 @@ def rel2(x, ref):
                  / torch.linalg.vector_norm(ref))
 
 
-def check_step(step, u0, arrays, label):
-    """Run one counted step; assert convergence and the explicit residual.
-    Returns (result, seconds, launch counts)."""
+def check_step(step, u0, arrays, label, fn=None, floor_ok=False):
+    """Run one counted step (through ``fn``, default the step's own apply);
+    assert convergence and the explicit residual.  With ``floor_ok`` a
+    GMRES that stopped on stagnation at the float32 floor counts as
+    converged when its explicit residual is within 2e-6: the tolerance is
+    clamped at 16 eps(float32) |MB| = 1.907e-6 |MB|, so two applies that
+    round differently can end on either side of it.  Returns (result,
+    seconds, launch counts)."""
+    fn = step.fn if fn is None else fn
     reset_counts()
-    res, secs = timed(lambda: step(u0, *arrays))
+    res, secs = timed(lambda: step.solve(u0, fn, *arrays))
     launched = counts()
-    A = step.apply_A(step.fn, *arrays)
+    A = step.apply_A(fn, *arrays)
     B = torch.where(step.mask, 0.0, u0)
     rel_pre = float(torch.linalg.vector_norm(step.M(B - A(res.x)))
                     / torch.linalg.vector_norm(step.M(B)))
-    log(f"{label}: step {secs:.4f} s via {step.path}, cycles={res.iters} "
+    via = step.path if fn is step.fn else "the given apply"
+    log(f"{label}: step {secs:.4f} s via {via}, cycles={res.iters} "
         f"arnoldi={res.inner_iters} converged={res.converged} "
         f"rel_residual={res.rel_residual:.3e}; explicit |M(B-Ax)|/|MB| = "
         f"{rel_pre:.3e}; launches {launched}")
-    assert res.converged and torch.isfinite(res.x).all(), label
+    at_floor = floor_ok and res.stagnated and res.x.dtype == F32
+    if at_floor and not res.converged:
+        log(f"{label}: stopped at the float32 floor (16 eps = "
+            f"{16 * torch.finfo(F32).eps:.4g}); explicit residual within 2e-6")
+    assert (res.converged or at_floor) and torch.isfinite(res.x).all(), label
     assert rel_pre <= 2e-6, (label, rel_pre)
     return res, secs, launched
 
@@ -201,8 +321,13 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    for kmod in (ksum, kbtdb):
-        kmod.build()
+    kmods = (ksum, kbtdb, kz)
+    t_build = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kmods)) as pool:
+        list(pool.map(lambda kmod: kmod.build(), kmods))
+    log(f"phase 1: {len(kmods)} kernel libraries built in parallel, "
+        f"{time.perf_counter() - t_build:.2f} s")
+    for kmod in kmods:
         secs, nvcc_log = kbuild.build_info(kmod.LIB_NAME)
         log(f"phase 1: kernel library {kmod.LIB_NAME} built/loaded in "
             f"{secs:.2f} s")
@@ -211,7 +336,8 @@ def main():
                                        "spill")):
                 log(f"  ptxas: {line.strip()}")
 
-    # -- 2. sum-factorization kernel against its plain version ----------------
+    # -- 2 and 8a. sum-factorization and z-chain kernels against their plain
+    # versions ---------------------------------------------------------------
     gen = np.random.default_rng(0)
     for n in ((3, 4, 5), (6, 6, 6)):
         for order in (1, 2, 3, 4):
@@ -232,16 +358,35 @@ def main():
                         err, _ = compare(lambda v: fk(v, Dk),
                                          lambda v: fp(v, Dp), u)
                         ok = err <= TOL[dtype]
-                        log(f"phase 2: n={n} p={order} {str(dtype)[6:]} "
-                            f"{name} {'z-periodic' if periodic else 'full D'}"
-                            f": max|k-p|/max|p| = {err:.3e} "
+                        what = (f"n={n} p={order} {str(dtype)[6:]} {name} "
+                                f"{'z-periodic' if periodic else 'full D'}")
+                        log(f"phase 2: {what}: max|k-p|/max|p| = {err:.3e} "
                             f"(tol {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
                         assert ok, (n, order, dtype, name, periodic, err)
+                        # B4: the z-chain kernel on the same x/y fields,
+                        # then the whole bind_zchain apply against bind()
+                        fz, Dz = op.bind_zchain(use_periodic=periodic)
+                        zargs = (Dz, op.tab, op.Az, op.DAz, periodic)
+                        before = kz.launches
+                        err_t, _ = compare(
+                            stacked(lambda *T: kz.zchain_apply(*T, *zargs)),
+                            stacked(lambda *T: kz.zchain_plain(
+                                *T, Dz, op.Az, op.DAz, periodic)),
+                            *op.xy_fields(u))
+                        err_z, _ = compare(lambda v: fz(v, Dz),
+                                           lambda v: fp(v, Dp), u)
+                        assert kz.launches == before + 2
+                        ok = max(err_t, err_z) <= TOL[dtype]
+                        log(f"phase 8a: {what}: z-chain kernel vs plain "
+                            f"{err_t:.3e}, bind_zchain vs bind() {err_z:.3e} "
+                            f"(tol {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+                        assert ok, (n, order, dtype, name, periodic, err_t,
+                                    err_z)
 
     # -- 3. B^T D B kernel against its plain version ---------------------------
     for dim, mesh in ((3, make_cartesian_mesh_3d(3, 4, 5)),
                       (2, make_cartesian_mesh_2d(7, 5))):
-        for order in (1, 2, 3):
+        for order in (1, 2, 3, 4):
             ops = space_ops(mesh, order, dev)
             data = vc(BilinearForm(ops), dim).assemble()
             for dtype in (torch.float64, F32):
@@ -298,10 +443,13 @@ def main():
     fk, Dk = op.bind_kernel(use_periodic=True)
     b2_err, b2_abs = compare(lambda v: fk(v, Dk), lambda v: fnp(v, Dp), u)
     assert b2_err <= TOL[F32], b2_err
-    b2_k, b2_p = in_turns(lambda: fk(u, Dk), lambda: fnp(u, Dp))
+    b2_k, b2_p = in_turns(lambda: fk(u, Dk), lambda: fnp(u, Dp), graph=True)
+    b2_call = median_ms(lambda: fk(u, Dk))
+    b2_bound = bound(nbytes(Dk, u, u), sumfact_flops(op))
     log(f"phase 4: 48^3 z-periodic kernel vs plain: max|k-p|/max|p| = "
-        f"{b2_err:.3e}, max|k-p| = {b2_abs:.3e}; median apply ms (two "
-        f"rounds): kernel {b2_k}, plain {b2_p}")
+        f"{b2_err:.3e}, max|k-p| = {b2_abs:.3e}; device ms per apply (two "
+        f"rounds): kernel {b2_k}, plain {b2_p}; one kernel call with its "
+        f"host enqueue {b2_call:.4f} ms; bound {b2_bound}")
     del step, sstep, op, D, Dp, Dk, sD, res, res_p, sres, fk, fnp
     torch.cuda.empty_cache()
 
@@ -359,7 +507,10 @@ def main():
                              lambda v: kbtdb.btdb_plain(BG, v, Dflat_s), u_eT)
     assert b1_err <= TOL[F32], b1_err
     b1_k, b1_p = in_turns(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s),
-                          lambda: kbtdb.btdb_plain(BG, u_eT, Dflat_s))
+                          lambda: kbtdb.btdb_plain(BG, u_eT, Dflat_s),
+                          graph=True)
+    b1_call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s))
+    b1_bound = bound(nbytes(BG, u_eT, Dflat_s, u_eT), btdb_flops(BG, Dflat_s))
     spa_op.use_kernel = False  # the same operator through btdb_plain
     spa_plain, _ = spa_op.bind()
     b1g_k, b1g_p = in_turns(lambda: spa_step.fn(u, Dflat_s),
@@ -367,17 +518,21 @@ def main():
     ue = u[lat]
     pa_k = median_ms(lambda: pa_step.fn(ue, Dflat_e, eldofs_T))
     log(f"phase 7: B1 48^3 p=2 f32 (ne={u_eT.shape[1]}): max|k-p|/max|p| = "
-        f"{b1_err:.3e}, max|k-p| = {b1_abs:.3e}; median ms kernel {b1_k}, "
-        f"btdb_plain {b1_p}; with lattice gather+scatter: kernel {b1g_k}, "
+        f"{b1_err:.3e}, max|k-p| = {b1_abs:.3e}; bound {b1_bound}; device "
+        f"ms per call kernel {b1_k}, btdb_plain {b1_p}; one kernel call "
+        f"{b1_call:.4f} ms; median ms of one call with lattice gather+scatter: kernel {b1g_k}, "
         f"plain {b1g_p}; PA entity gather+index_add_ with kernel {pa_k:.4f}")
     fk, Dk = sop.bind_kernel()
     fp, Dp = sop.bind()
     b3_err, b3_abs = compare(lambda v: fk(v, Dk), lambda v: fp(v, Dp), u)
     assert b3_err <= TOL[F32], b3_err
-    b3_k, b3_p = in_turns(lambda: fk(u, Dk), lambda: fp(u, Dp))
+    b3_k, b3_p = in_turns(lambda: fk(u, Dk), lambda: fp(u, Dp), graph=True)
+    b3_call = median_ms(lambda: fk(u, Dk))
+    b3_bound = bound(nbytes(Dk, u, u), sumfact_flops(sop))
     log(f"phase 7: full-D sumfact (B3 counterpart) 48^3 p=2 f32 on kappa(z)"
         f" D: max|k-p|/max|p| = {b3_err:.3e}, max|k-p| = {b3_abs:.3e}; "
-        f"median ms kernel {b3_k}, plain {b3_p}")
+        f"bound {b3_bound}; device ms per apply kernel {b3_k}, plain "
+        f"{b3_p}; one kernel call {b3_call:.4f} ms")
     log(f"phase 7: vc GMRES step s {step_times}; setup s {setups}; peak "
         f"device memory in phase 5: {vc_peak / 2**30:.2f} GiB")
     del steps, sf_step, spa_step, pa_step, sop, sD, Dflat_s, Dflat_e, eldofs_T
@@ -436,24 +591,182 @@ def main():
     log(f"phase 7: peak device memory in phase 6: {mg_peak / 2**30:.2f} GiB;"
         f" wall so far {time.perf_counter() - t_start:.1f} s")
 
+    # -- 8b. slice 3: the operator-apply sweep at orders 2-4 -------------------
+    b1_launches = (vc_launches["structured-pa"]["btdb"]
+                   + vc_launches["pa"]["btdb"])
+    b3_launches = vc_launches["sumfact"]["sumfact_fulld"] + mg_launches
+    b4_launches = 0
+    sweep, b4 = {}, {}
+    by_order = {"B1": {}, "B2": {}, "B3": {}}
+    for order in (2, 3, 4):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        P, setup_s = timed(lambda: operator_paths(n=48, order=order,
+                                                  dtype=F32))
+        assert tuple(P.paths) == PATHS, list(P.paths)
+        u = torch.as_tensor(gen.standard_normal(P.ndofs), dtype=F32,
+                            device=dev)
+        ys, launched = {}, {}
+        for name, (fn, arrays) in P.paths.items():
+            reset_counts()
+            ys[name] = fn(u, *arrays)
+            torch.cuda.synchronize()
+            launched[name] = counts()
+        peak = torch.cuda.max_memory_allocated()  # before any timing
+        b1_launches += (launched["structured-pa"]["btdb"]
+                        + launched["pa"]["btdb"])
+        b2_launches += launched["sumfact-zfma-periodic"]["sumfact"]
+        b3_launches += launched["sumfact-fused"]["sumfact_fulld"]
+        b4_launches += (launched["sumfact-zchain"]["zchain"]
+                        + launched["sumfact-zchain-periodic"]["zchain"])
+        y_ref = ys["sumfact"]
+        log(f"phase 8b: operator_paths(n=48, order={order}): {P.ndofs} DOFs,"
+            f" setup {setup_s:.2f} s")
+        for name, y in ys.items():
+            err = rel_err(y, y_ref)
+            moved = {k for k, v in launched[name].items() if v}
+            log(f"phase 8b: p={order} {name}: max|y - y_sumfact|/max|y| = "
+                f"{err:.3e} (tol 1e-5); launches {launched[name]}")
+            assert torch.isfinite(y).all() and err <= 1e-5, (order, name, err)
+            assert moved == PATH_COUNTERS[name], (order, name, moved)
+        del ys
+        ref_fn, ref_arrays = P.paths["sumfact"]
+        ref_ms = []
+        for name in PATHS[1:]:
+            fn, arrays = P.paths[name]
+            k, r = in_turns(lambda: fn(u, *arrays),
+                            lambda: ref_fn(u, *ref_arrays), reps=20)
+            sweep[order, name] = min(k)
+            ref_ms += r
+        sweep[order, "sumfact"] = min(ref_ms)
+        for name in PATHS:
+            log(f"phase 8b: p={order} {name}: median apply "
+                f"{sweep[order, name]:.4f} ms, "
+                f"{P.ndofs / sweep[order, name] / 1e3:.1f} MDOF/s")
+        # the z-chain kernel alone on its x/y fields, full D and Dz
+        sf = P.sumfact
+        T = sf.xy_fields(u)
+        for periodic in (False, True):
+            _, Dk = sf.bind_zchain(use_periodic=periodic)
+            zargs = (Dk, sf.tab, sf.Az, sf.DAz, periodic)
+            err, err_abs = compare(
+                stacked(lambda *T: kz.zchain_apply(*T, *zargs)),
+                stacked(lambda *T: kz.zchain_plain(*T, Dk, sf.Az, sf.DAz,
+                                                   periodic)), *T)
+            assert err <= TOL[F32], (order, periodic, err)
+            k, pl = in_turns(lambda: kz.zchain_apply(*T, *zargs),
+                             lambda: kz.zchain_plain(*T, Dk, sf.Az, sf.DAz,
+                                                     periodic), graph=True)
+            call = median_ms(lambda: kz.zchain_apply(*T, *zargs), reps=20)
+            bms, by = bound(nbytes(Dk, *T, *T), zchain_flops(sf))
+            b4[order, periodic] = {"ms": min(k), "plain_ms": min(pl),
+                                   "bound_ms": bms, "bound_by": by,
+                                   "max_abs_err": err_abs, "call_ms": call}
+            log(f"phase 8b: p={order} z-chain kernel alone "
+                f"{'Dz' if periodic else 'full D'}: max|k-p|/max|p| = "
+                f"{err:.3e}, max|k-p| = {err_abs:.3e}; device ms per call "
+                f"kernel {k}, plain {pl}; one call with its host enqueue "
+                f"{call:.4f} ms; bound {bms:.4f} ms ({by})")
+        del T
+        # the element-local kernel at this order (B2 on Dz, B3's launch on
+        # full D), device time beside its bound
+        for name, key in (("sumfact-zfma-periodic", "B2"),
+                          ("sumfact-fused", "B3")):
+            fn, arrays = P.paths[name]
+            t = graph_ms(lambda: fn(u, *arrays))
+            bnd = bound(nbytes(arrays[0], u, u), sumfact_flops(sf))
+            by_order[key][f"p{order}"] = {"ms": t, "bound_ms": bnd[0],
+                                          "bound_by": bnd[1]}
+            log(f"phase 8b: p={order} {name} ({key}) device ms per call "
+                f"{t:.4f}; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if order > 2:  # order 2: phase 7
+            spa = P.structured_pa
+            u_eT = spa.grid.gather(u)
+            BG, Dflat = spa.BG, spa.Dflat
+            err, err_abs = compare(
+                lambda v: kbtdb.btdb_apply(BG, v, Dflat),
+                lambda v: kbtdb.btdb_plain(BG, v, Dflat), u_eT)
+            assert err <= TOL[F32], err
+            k, pl = in_turns(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat),
+                             lambda: kbtdb.btdb_plain(BG, u_eT, Dflat),
+                             graph=True)
+            call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat),
+                             reps=20)
+            bms, by = bound(nbytes(BG, u_eT, Dflat, u_eT),
+                            btdb_flops(BG, Dflat))
+            by_order["B1"][f"hex_p{order}"] = {
+                "ms": min(k), "plain_ms": min(pl), "bound_ms": bms,
+                "bound_by": by, "max_abs_err": err_abs, "call_ms": call}
+            log(f"phase 8b: B1 at hex p={order} (ne={u_eT.shape[1]}): "
+                f"max|k-p|/max|p| = {err:.3e}, max|k-p| = {err_abs:.3e}; "
+                f"device ms per call kernel {k}, btdb_plain {pl}; one call "
+                f"{call:.4f} ms; bound {bms:.4f} ms ({by})")
+            del spa, u_eT, BG, Dflat
+        log(f"phase 8b: p={order} peak device memory of the setup and "
+            f"the eight applies {peak / 2**30:.2f} GiB")
+        del P, sf, u, fn, arrays, ref_fn, ref_arrays
+    torch.cuda.empty_cache()
+
+    # -- 8c. slice 3: BE steps at orders 3 and 4 through B4 -----------------
+    for order in (3, 4):
+        for label, make, periodic, path in (
+                ("vc_entry", vc_entry, False, "cuda-sumfact-fullD"),
+                ("entry", entry, True, "cuda-sumfact-zperiodic")):
+            (step, (u0, D)), setup_s = timed(
+                lambda: make(n=48, order=order, dtype=F32))
+            label = f"phase 8c: {label}(n=48, order={order})"
+            log(f"{label}: {step.op.ndofs} DOFs, setup {setup_s:.2f} s")
+            assert step.path == path, step.path
+            res_b, _, l_b = check_step(step, u0, (D,), f"{label} best_bind",
+                                       floor_ok=True)
+            fz, Dz = step.op.bind_zchain(use_periodic=periodic)
+            res_z, _, l_z = check_step(step, u0, (Dz,), f"{label} zchain",
+                                       fn=fz, floor_ok=True)
+            assert l_z["zchain"] > 0 and l_z["sumfact"] == 0, l_z
+            assert (l_z["zchain_periodic"] > 0) == periodic, l_z
+            d = rel2(res_z.x, res_b.x)
+            log(f"{label}: z-chain vs best_bind solution 2-norm rel {d:.3e} "
+                f"(tol 1e-4)")
+            assert d <= 1e-4, d
+            b4_launches += l_z["zchain"]
+            if periodic:
+                b2_launches += l_b["sumfact"]
+            else:
+                b3_launches += l_b["sumfact_fulld"]
+            del step, u0, D, Dz, fz, res_b, res_z
+            torch.cuda.empty_cache()
+
+    def record(name, source, replaces, launches, err, k, p, bnd, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"cmfem_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": min(k), "plain_ms": min(p),
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                # no one PyTorch call computes any of these functions: each
+                # has a pointwise D stage between two contractions
+                "library_ms": None, **extra}
+
+    log("phase 8b: sweep median apply ms " + json.dumps(
+        {f"p{o} {n}": v for (o, n), v in sweep.items()}))
+    b4_2 = b4[2, False]
     log(json.dumps({"kernels": [
-        {"name": "btdb", "route": "cuda",
-         "source": "cmfem_tpu_torch/csrc/btdb.cu",
-         "replaces": "cmfem_tpu/ops/partial.py:69",
-         "launches": vc_launches["structured-pa"]["btdb"]
-         + vc_launches["pa"]["btdb"],
-         "max_abs_err": b1_abs, "ms": min(b1_k), "plain_ms": min(b1_p)},
-        {"name": "sumfact_fused", "route": "cuda",
-         "source": "cmfem_tpu_torch/csrc/sumfact_fused.cu",
-         "replaces": "cmfem_tpu/ops/sumfact.py:563",
-         "launches": b2_launches,
-         "max_abs_err": b2_abs, "ms": min(b2_k), "plain_ms": min(b2_p)},
-        {"name": "sumfact_fused_fullD", "route": "cuda",
-         "source": "cmfem_tpu_torch/csrc/sumfact_fused.cu",
-         "replaces": "cmfem_tpu/ops/sumfact.py:365",
-         "launches": vc_launches["sumfact"]["sumfact_fulld"] + mg_launches,
-         "max_abs_err": b3_abs, "ms": min(b3_k), "plain_ms": min(b3_p),
-         "max_abs_err_f64_mg_n48": mg_abs},
+        record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
+               b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,
+               by_order=by_order["B1"]),
+        record("sumfact_fused", "sumfact_fused.cu",
+               "cmfem_tpu/ops/sumfact.py:563", b2_launches, b2_abs, b2_k,
+               b2_p, b2_bound, call_ms=b2_call, by_order=by_order["B2"]),
+        record("sumfact_fused_fullD", "sumfact_fused.cu",
+               "cmfem_tpu/ops/sumfact.py:365", b3_launches, b3_abs, b3_k,
+               b3_p, b3_bound, call_ms=b3_call,
+               max_abs_err_f64_mg_n48=mg_abs, by_order=by_order["B3"]),
+        record("sumfact_zchain", "sumfact_zchain.cu",
+               "cmfem_tpu/ops/sumfact.py:768", b4_launches,
+               b4_2["max_abs_err"], [b4_2["ms"]], [b4_2["plain_ms"]],
+               (b4_2["bound_ms"], b4_2["bound_by"]),
+               call_ms=b4_2["call_ms"],
+               by_order={f"p{o}_{'Dz' if per else 'fullD'}": v
+                         for (o, per), v in b4.items()}),
     ]}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(smi)

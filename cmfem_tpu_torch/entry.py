@@ -27,6 +27,13 @@ Slice 2:
   Dirichlet walls and the manufactured solution
   u = sin(pi x) sin(pi y) sin(pi z), by CG preconditioned with
   ``StructuredMG`` (or Jacobi), as ``bench.py::bench_mg`` runs it.
+
+Slice 3, ``operator_paths``: the operator-apply paths that
+``bench.py::bench_operator`` sweeps at orders 2-4, on one form, each an
+apply of the same lattice-numbered vector (the timing lives in
+``chip_smoke.py``).  ``entry`` and ``vc_entry`` run at orders 3 and 4
+unchanged; their steps go through the z-chain with
+``step.solve(u0, *op.bind_zchain(...))``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,10 @@ def KAPPA(x):
 
 
 OPERATORS = ("sumfact", "structured-pa", "pa")
+# operator_paths' names; the *-periodic paths exist only for z-periodic D
+PATHS = ("sumfact", "sumfact-periodic", "sumfact-fused",
+         "sumfact-zfma-periodic", "sumfact-zchain", "sumfact-zchain-periodic",
+         "structured-pa", "pa")
 
 
 class BEStep:
@@ -250,3 +261,76 @@ def mg_solve(n: int = 48, order: int = 2, device=None, dtype=torch.float64,
     t2 = time.perf_counter()
     err = l2_error(ops, res.x[lat].to(torch.float64), mms_exact)
     return MGSolve(res, float(err), path, op, t1 - t0, t2 - t1)
+
+
+class OperatorPaths(NamedTuple):
+    ndofs: int
+    sumfact: SumFactoredOperator
+    structured_pa: StructuredPAOperator
+    pa: PAOperator
+    lat: torch.Tensor  # entity -> lattice: x_lattice[lat] = x_entity
+    # name -> (fn, arrays): y = fn(u, *arrays), u and y lattice-numbered
+    paths: dict
+
+
+def operator_paths(n: int = 48, order: int = 2, device=None,
+                   dtype=torch.float32) -> OperatorPaths:
+    """The apply paths of ``bench.py::bench_operator`` on its form
+    ``diffusion(0.1) + convection(beta) + mass(1.0)`` at n^3 elements of
+    order ``order`` (1-4), ``SpaceOps(quad_order=2*order)``.
+
+    Each port path stands for these JAX candidates:
+
+    - ``sumfact``: ``bind()``, the plain chain (JAX ``sumfact``);
+    - ``sumfact-periodic``: ``bind(use_periodic=True)`` (``sumfact-periodic``);
+    - ``sumfact-fused``: ``bind_kernel()``, the element-local kernel on full
+      D (``sumfact-fused``, ``-xc2``, ``-s2``, ``sumfact-zfma``);
+    - ``sumfact-zfma-periodic``: ``bind_kernel(use_periodic=True)``
+      (``sumfact-zfma-periodic``, ``sumfact-fused-periodic``, ``-s4``,
+      ``-s2``);
+    - ``sumfact-zchain``: ``bind_zchain()``, the z-chain kernel
+      (``sumfact-pallas``);
+    - ``sumfact-zchain-periodic``: ``bind_zchain(use_periodic=True)``
+      (``sumfact-pallas-periodic``);
+    - ``structured-pa``: ``StructuredPAOperator`` with the B^T D B kernel
+      (``structured-pallas``);
+    - ``pa``: ``PAOperator`` with the same kernel, its entity numbering
+      moved through ``lat`` (``unstructured-xla``; JAX's PA is XLA there).
+
+    JAX's ``slab``, ``x_chunks`` and ``s2``/``s4`` variants exist only to
+    fit the TPU's VMEM, so they are not separate paths here.  The periodic
+    paths are present only when D is z-periodic, as in bench.py.
+    ``device=None`` means the CUDA device (the kernel paths then launch
+    their kernels; on the CPU they run the plain versions)."""
+    device = _device(device)
+    fes = FESpace(make_cartesian_mesh_3d(n, n, n), order)
+    ops = SpaceOps(fes, quad_order=2 * order, device=device,
+                   dtype=torch.float64)
+    data = (BilinearForm(ops).add_diffusion(0.1).add_convection(BETA)
+            .add_mass(1.0).assemble())
+    grid = StructuredGrid3D(n, n, n, order)
+    sf = SumFactoredOperator(ops, data, n, n, n, order, device=device,
+                             dtype=dtype)
+    spa = StructuredPAOperator(ops, data, grid, dtype=dtype)
+    pa = PAOperator(ops, data, dtype=dtype)
+    lat = torch.as_tensor(lattice_index(fes, grid), device=device)
+    periodic = sf.z_periodic and sf.compressed
+    binds = {"sumfact": sf.bind()}
+    if periodic:
+        binds["sumfact-periodic"] = sf.bind(use_periodic=True)
+    binds["sumfact-fused"] = sf.bind_kernel()
+    if periodic:
+        binds["sumfact-zfma-periodic"] = sf.bind_kernel(use_periodic=True)
+    binds["sumfact-zchain"] = sf.bind_zchain()
+    if periodic:
+        binds["sumfact-zchain-periodic"] = sf.bind_zchain(use_periodic=True)
+    binds["structured-pa"] = spa.bind()
+    paths = {name: (fn, (D,)) for name, (fn, D) in binds.items()}
+    pa_fn, Dflat, eldofs_T = pa.bind()
+
+    def pa_lattice(u, Dflat, eldofs_T):
+        y = pa_fn(u[lat], Dflat, eldofs_T)
+        return torch.empty_like(y).index_copy_(0, lat, y)
+
+    paths["pa"] = (pa_lattice, (Dflat, eldofs_T))
+    return OperatorPaths(grid.ndofs, sf, spa, pa, lat, paths)

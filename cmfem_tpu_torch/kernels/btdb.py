@@ -19,9 +19,13 @@ import torch
 from .build import load_library
 
 # (m, nd, nq) the kernel is instantiated for: hexes (m = 4) and quads
-# (m = 3) at orders 1-3 with q1 = p + 1 Gauss points per axis
-KERNEL_SHAPES = ((4, 8, 8), (4, 27, 27), (4, 64, 64),
-                 (3, 4, 4), (3, 9, 9), (3, 16, 16))
+# (m = 3) at orders 1-4 with q1 = p + 1 Gauss points per axis (hexes at
+# order 4 through the kernel's tiled design)
+KERNEL_SHAPES = ((4, 8, 8), (4, 27, 27), (4, 64, 64), (4, 125, 125),
+                 (3, 4, 4), (3, 9, 9), (3, 16, 16), (3, 25, 25))
+# shapes whose BG the kernel reads with its rows padded (zero columns) to
+# this length: hexes at order 4, the kernel's tiled design
+PADDED_ROWS = {(4, 125, 125): 128}
 LIB_NAME = "cmfem_btdb"
 SOURCES = ["btdb.cu"]
 
@@ -52,8 +56,9 @@ def btdb_plain(BG, u_eT, Dflat):
 def _lib():
     lib = load_library(LIB_NAME, SOURCES)
     for fn in (lib.cmfem_btdb_apply_f32, lib.cmfem_btdb_apply_f64):
-        # BG, u, D, y, m, nd, nq, ne, stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        # BG, ldb, u, D, y, m, nd, nq, ne, stream
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] \
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
             + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.cmfem_btdb_error_string.argtypes = [ctypes.c_int]
@@ -99,10 +104,13 @@ def btdb_apply(BG, u_eT, Dflat):
     lib = _lib()
     fn = (lib.cmfem_btdb_apply_f32 if u_eT.dtype == torch.float32
           else lib.cmfem_btdb_apply_f64)
+    ldb = PADDED_ROWS.get((m, nd, nq), nd)
+    if ldb != nd:
+        BG = torch.nn.functional.pad(BG, (0, ldb - nd))
     y = torch.empty_like(u_eT)
     with torch.cuda.device(u_eT.device):
         stream = torch.cuda.current_stream(u_eT.device).cuda_stream
-        err = fn(BG.data_ptr(), u_eT.data_ptr(), Dflat.data_ptr(),
+        err = fn(BG.data_ptr(), ldb, u_eT.data_ptr(), Dflat.data_ptr(),
                  y.data_ptr(), m, nd, nq, ne, stream)
     if err != 0:
         msg = lib.cmfem_btdb_error_string(err).decode()

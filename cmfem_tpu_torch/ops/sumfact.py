@@ -11,14 +11,17 @@ with block-banded 1D matrices A/DA of shape (n_el*q1, n_el*p + 1).  The QP
 blocks D are permuted once into the same QP-lattice layout, the 4x4 block
 action is pointwise, and the transposed chains assemble y3 directly.
 
-Two apply paths, both on lattice-numbered vectors:
+Three apply paths, all on lattice-numbered vectors:
 
 - the plain PyTorch chains (``bind()``, ``_bind_periodic``): dense axis
   matrices and einsum, any device;
 - the hand-written CUDA kernel (``bind_kernel``, csrc/sumfact_fused.cu),
   which replaces the TPU's fused z-FMA Pallas kernel
   (``cmfem_tpu/ops/sumfact.py::_bind_fused_zfma``).  ``best_bind`` picks it
-  for compressed D on a CUDA device.
+  for compressed D on a CUDA device;
+- the z-chain (``bind_zchain``): the x/y chains as torch einsums around
+  the hand-written z-chain kernel of csrc/sumfact_zchain.cu, which
+  replaces the TPU's ``_bind_pallas``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from .partial import _tensor, pack_qp_blocks_T
 from ..core.quadrature import _gauss_1d
 from ..core.reference_elements import gauss_lobatto_nodes, _lagrange_1d
 from ..kernels.sumfact import KERNEL_ORDERS, sumfact_apply, sumfact_chain
+from ..kernels.zchain import zchain_apply
 
 # upper-triangular (r, s) grad-grad pairs of the compressed packing; plane
 # order D00, D0x, D0y, D0z, Dxx, Dxy, Dxz, Dyy, Dyz, Dzz
@@ -228,6 +232,57 @@ class SumFactoredOperator:
             return sumfact_apply(u.to(dtype), D, tab, mats, use_periodic)
 
         return fn, (self.Dz if use_periodic else self.D)
+
+    def bind_zchain(self, use_periodic: bool = False):
+        """(fn(u, D) -> y, D_arg): the x/y chains as torch einsums around
+        the z-chain kernel (its plain version for CPU tensors), the
+        counterpart of JAX's ``bind(use_pallas=True)``.
+
+        D_arg is D as (10, Kz, Ky*Kx), or with use_periodic the z-periodic
+        Dz as (10, q1, Ky*Kx).  There is no tile: the kernel masks its
+        ragged edge.  Requires compressed D (z-periodic with use_periodic)
+        and q1 = p + 1 with p in KERNEL_ORDERS."""
+        if use_periodic and not (self.z_periodic and self.compressed):
+            raise ValueError(
+                "periodic sumfact path requires z-periodic compressed "
+                "D (uniform z-extrusion, z-uniform coefficients)")
+        if not self.compressed:
+            raise ValueError("pallas sumfact path requires compressed D")
+        if not self.kernel_eligible:
+            raise ValueError(
+                "the z-chain kernel needs q1 = p + 1 with p in "
+                f"{KERNEL_ORDERS} (got p={self.p}, q1={self.q1})")
+        Ax, DAx, Ay, DAy, Az, DAz = self._mats
+        tab, NZ, Ky, Kx = self.tab, self.NZ, self.Ky, self.Kx
+        KK = Ky * Kx
+        D_arg = (self.Dz.reshape(10, self.q1, KK) if use_periodic
+                 else self.D.reshape(10, self.Kz, KK))
+
+        def fn(u, D):
+            U0, Ux, Uy = (U.reshape(NZ, Ky, Kx) for U in zchain_apply(
+                *self.xy_fields(u), D, tab, Az, DAz, use_periodic))
+            # the transposed x/y chains; U0 and Uy share the x stage
+            t = (torch.einsum("by,zba->zya", Ay, U0)
+                 + torch.einsum("by,zba->zya", DAy, Uy))
+            y3 = (torch.einsum("ax,zya->zyx", Ax, t)
+                  + torch.einsum("ax,zya->zyx", DAx,
+                                 torch.einsum("by,zba->zya", Ay, Ux)))
+            return y3.reshape(-1)
+
+        return fn, D_arg
+
+    def xy_fields(self, u):
+        """(T0, Tx, Ty), each (NZ, Ky*Kx): the x/y chains of the z-chain
+        path, (Ax, Ay), (DAx, Ay) and (Ax, DAy) applied to u (T0 and Ty
+        share the x stage)."""
+        u3 = u.to(self.dtype).reshape(self.NZ, self.NY, self.NX)
+        tx0 = torch.einsum("ax,zyx->zya", self.Ax, u3)
+        tx1 = torch.einsum("ax,zyx->zya", self.DAx, u3)
+
+        def y(My, t):
+            return torch.einsum("by,zya->zba", My, t).reshape(self.NZ, -1)
+
+        return y(self.Ay, tx0), y(self.Ay, tx1), y(self.DAy, tx0)
 
     @property
     def kernel_eligible(self) -> bool:

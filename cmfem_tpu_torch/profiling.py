@@ -1,4 +1,4 @@
-"""Where the time of slice 2's paths goes, on one GPU.
+"""Where the time of slices 2 and 3's paths goes, on one GPU.
 
     python -m cmfem_tpu_torch.profiling [--n 48] [--out FILE]
 
@@ -11,7 +11,10 @@ order-2 elements:
 - one warm GMRES backward-Euler step of ``vc_entry`` through each of the
   three operators, float32;
 - one StructuredMG V-cycle of ``mg_solve``'s problem, float64, and each
-  level's operator apply alone (host clock, device synchronized).
+  level's operator apply alone (host clock, device synchronized);
+- one ``sumfact-zchain`` and one ``sumfact-zchain-periodic`` apply of
+  ``operator_paths``, float32: how the device time splits between the
+  z-chain kernel and the torch x/y matmuls around it.
 
 For each it prints the host wall per repetition (profiled, and unprofiled
 where stated), the device busy time (the sum of the device activities'
@@ -32,7 +35,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import require_cuda
-from .entry import KAPPA, OPERATORS, vc_entry
+from .entry import KAPPA, OPERATORS, operator_paths, vc_entry
 from .ops import BilinearForm
 from .solvers.multigrid import StructuredMG
 
@@ -120,6 +123,17 @@ def profile_vcycle(n, dev, rng, out):
             f"{host_ms(lambda: fn(v, D)):.3f} ms (host clock)")
 
 
+def profile_zchain(n, dev, rng, out):
+    """The z-chain applies of operator_paths at order 2."""
+    P = operator_paths(n=n, order=2, device=dev)
+    u = torch.as_tensor(rng.standard_normal(P.ndofs), dtype=torch.float32,
+                        device=dev)
+    for name in ("sumfact-zchain", "sumfact-zchain-periodic"):
+        fn, arrays = P.paths[name]
+        out(f"-- operator_paths(n={n}, order=2) {name}")
+        profiled(f"{name} apply", lambda: fn(u, *arrays), 20, out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=48)
@@ -141,6 +155,7 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     profile_operators(args.n, dev, rng, out)
     profile_vcycle(args.n, dev, rng, out)
+    profile_zchain(args.n, dev, rng, out)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -33,7 +33,8 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.kernels.sumfact", "cmfem_tpu_torch.ops.sumfact",
             "cmfem_tpu_torch.solvers.krylov", "cmfem_tpu_torch.kernels.btdb",
             "cmfem_tpu_torch.ops.partial",
-            "cmfem_tpu_torch.solvers.multigrid"} <= set(mods)
+            "cmfem_tpu_torch.solvers.multigrid",
+            "cmfem_tpu_torch.kernels.zchain"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"

@@ -9,7 +9,8 @@ with ``use_pallas=False`` (1e-12, float64), with the variable conductivity
 kappa = 0.1 + z^2 (0.1 + y^2 on quads).  The CUDA kernel runs only on the
 card: the test marked ``gpu`` holds it against the plain version there
 (float64 to 1e-12 max|y|; float32 to 1e-5 max|y|: each output sums
-m*nq <= 256 products twice, in another order)."""
+m*nq <= 500 products twice, in another order), at every instantiated
+shape, hexes and quads at orders 1-4."""
 
 import numpy as np
 import pytest
@@ -42,6 +43,7 @@ from cmfem_tpu_torch.ops.partial import (
     PAOperator,
     StructuredGrid3D,
     StructuredPAOperator,
+    pack_qp_blocks_T,
 )
 
 DT = 1e-2
@@ -90,6 +92,23 @@ def test_btdb_plain_matches_xla_btdb(m, nd, nq):
     before = kbtdb.launches
     _check(kbtdb.btdb_apply(*args), y_ref, 1e-13)  # CPU: the plain version
     assert kbtdb.launches == before
+
+
+@pytest.mark.parametrize("dim", [3, 2])
+def test_btdb_plain_order4_matches_xla_btdb(dim):
+    """Order 4 on assembled forms: hexes on (2,2,2), (m, nd, nq) =
+    (4, 125, 125), and quads on (2,3), (3, 25, 25); each package packs its
+    own form (1e-12 max|y|, float64)."""
+    jops, jdata, ops, data = _pair(dim, 4, n=2)
+    jDflat, jBG = j_pack(jops, jdata, jnp.float64)
+    Dflat, BG = pack_qp_blocks_T(ops, data, torch.float64)
+    m, nd = dim + 1, 5 ** dim
+    assert tuple(BG.shape) == (m * nd, nd) and (m, nd, nd) in \
+        kbtdb.KERNEL_SHAPES
+    u_eT = np.random.default_rng(dim).standard_normal((nd, Dflat.shape[2]))
+    y_ref = _xla_btdb(jBG, nd, m, dtype=jnp.float64)(jnp.asarray(u_eT),
+                                                     jDflat)
+    _check(kbtdb.btdb_plain(BG, torch.as_tensor(u_eT), Dflat), y_ref, 1e-12)
 
 
 @pytest.mark.parametrize("dim,order", [(3, 1), (3, 2), (3, 3),
