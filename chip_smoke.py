@@ -7,14 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. checks: a CUDA device, the card's name and power limit (nvidia-smi),
      the three kernel libraries built from cmfem_tpu_torch/csrc/, one nvcc
      each, all started together (build time and ptxas registers/spills
-     printed);
-  2. the sum-factorization kernel against its plain version, orders 1-4 on
-     the (3,4,5) and (6,6,6) grids: the constant-coefficient CDR form
+     printed; the sum-factorization lane kernel's instantiations must not
+     spill);
+  2. the sum-factorization kernel (one launch of the lane kernel) and the
+     earlier colour design (``sumfact_apply_colour``) against their plain
+     version, orders 1-4 on the (3,4,5), (6,6,6) and (7,5,9) grids ((7,5,9)
+     is ragged: nx is no multiple of the elements per block): the
+     constant-coefficient CDR form
      (z-periodic and full D), the form with kappa = 0.1 + z^2 (full D that
      varies by element along z) and the same form on a distorted lattice
      (full D that varies along x, y and z); float64 to 1e-12 max|y|,
      float32 to 1e-5 max|y| (sums taken in another order, <= 125 terms per
-     output); on the same operators (phase 8a) the z-chain kernel against
+     output; the lane kernel adds shared DOFs with atomics, in an order that
+     changes from run to run); on the same operators (phase 8a) the z-chain kernel against
      its plain version on the same x/y fields, and the whole
      ``bind_zchain`` apply against ``bind()``, to the same tolerances;
   3. the B^T D B kernel against its plain version: hexes at orders 1-4 on
@@ -47,27 +52,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      counter; median apply ms of one call (CUDA events, in turns against
      ``sumfact``) and MDOF/s of each path; the z-chain kernel alone on its
      x/y fields beside its plain version, and B1 at orders 3 and 4 beside
-     its plain version (timed as in 7); the element-local kernel's device
-     time on Dz and on full D beside its bound; peak
+     its plain version (timed as in 7); the element-local kernel on Dz
+     (B2) and on full D (B3) in turns against the colour design (colour,
+     lane, lane, colour; device time as in 7), each beside its bound and
+     its share of the bound; peak
      device memory of each order; (c) the BE steps at 48^3, orders 3 and
      4: ``vc_entry`` through ``best_bind`` (full-D kernel) and through
      ``bind_zchain()``, ``entry`` through ``best_bind`` (Dz kernel) and
      through ``bind_zchain(use_periodic=True)``: each converges
      (|M(B-Ax)|/|MB| <= 2e-6; a GMRES that stops on stagnation at the
      float32 floor 16 eps = 1.907e-6 counts if it meets that) and the two
-     solutions of a form agree to 1e-4 in the 2-norm.
+     solutions of a form agree to 1e-4 in the 2-norm; the ``best_bind``
+     step is also timed in turns against the same step through the colour
+     design (lane, colour, colour, lane).
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
-FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates), the card's
-name and power limit, and {"ok": true, "device": {...}}.  Imports no JAX.
+FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
+sum-factorization kernel also ``earlier_ms``, the colour design's time in
+the same run), the card's name and power limit, and {"ok": true,
+"device": {...}}.  Imports no JAX.
 """
 
 import concurrent.futures
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -258,14 +270,34 @@ def in_turns(kernel, plain, reps=50, graph=False):
 
 
 def reset_counts():
-    ksum.launches = ksum.launches_fulld = kbtdb.launches = 0
-    kz.launches = kz.launches_periodic = 0
+    ksum.launches = ksum.launches_fulld = ksum.launches_colour = 0
+    kbtdb.launches = kz.launches = kz.launches_periodic = 0
 
 
 def counts():
     return {"sumfact": ksum.launches, "sumfact_fulld": ksum.launches_fulld,
-            "btdb": kbtdb.launches, "zchain": kz.launches,
-            "zchain_periodic": kz.launches_periodic}
+            "sumfact_colour": ksum.launches_colour, "btdb": kbtdb.launches,
+            "zchain": kz.launches, "zchain_periodic": kz.launches_periodic}
+
+
+def lane_kernel_resources(nvcc_log):
+    """{"float N=5": (registers, spill bytes), ...} of the lane kernel's
+    instantiations, from ptxas -v: an entry's "Compiling entry" line, then
+    its spill line, then its registers line."""
+    out, name, spill = {}, None, 0
+    for line in nvcc_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"sumfact_lane_kernelI([fd])Li(\d)E", line)
+            name = m and (f"{'float' if m[1] == 'f' else 'double'} "
+                          f"N={m[2]}")
+        elif name and "spill stores" in line:
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill",
+                                                   line))
+        elif name and "registers" in line:
+            out[name] = (int(re.search(r"Used (\d+) registers", line)[1]),
+                         spill)
+            name = None
+    return out
 
 
 def timed(fn):
@@ -335,11 +367,15 @@ def main():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill")):
                 log(f"  ptxas: {line.strip()}")
+    lane = lane_kernel_resources(kbuild.build_info(ksum.LIB_NAME)[1])
+    log(f"phase 1: sumfact_lane_kernel<T, N = p+1> (registers, spill bytes "
+        f"stored + loaded): {lane}")
+    assert len(lane) == 8 and not any(s for _, s in lane.values()), lane
 
     # -- 2 and 8a. sum-factorization and z-chain kernels against their plain
     # versions ---------------------------------------------------------------
     gen = np.random.default_rng(0)
-    for n in ((3, 4, 5), (6, 6, 6)):
+    for n in ((3, 4, 5), (6, 6, 6), (7, 5, 9)):
         for order in (1, 2, 3, 4):
             for dtype in (torch.float64, F32):
                 cases = [("uniform", cdr, False), ("kappa(z)", vc, False),
@@ -357,12 +393,20 @@ def main():
                         fp, Dp = op.bind(use_periodic=periodic)
                         err, _ = compare(lambda v: fk(v, Dk),
                                          lambda v: fp(v, Dp), u)
-                        ok = err <= TOL[dtype]
+                        before = ksum.launches_colour
+                        err_c, _ = compare(
+                            lambda v: ksum.sumfact_apply_colour(
+                                v, Dk, op.tab, op._mats, periodic),
+                            lambda v: fp(v, Dp), u)
+                        assert ksum.launches_colour == before + 1
+                        ok = max(err, err_c) <= TOL[dtype]
                         what = (f"n={n} p={order} {str(dtype)[6:]} {name} "
                                 f"{'z-periodic' if periodic else 'full D'}")
-                        log(f"phase 2: {what}: max|k-p|/max|p| = {err:.3e} "
-                            f"(tol {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
-                        assert ok, (n, order, dtype, name, periodic, err)
+                        log(f"phase 2: {what}: max|k-p|/max|p| = {err:.3e}, "
+                            f"colour design {err_c:.3e} (tol "
+                            f"{TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+                        assert ok, (n, order, dtype, name, periodic, err,
+                                    err_c)
                         # B4: the z-chain kernel on the same x/y fields,
                         # then the whole bind_zchain apply against bind()
                         fz, Dz = op.bind_zchain(use_periodic=periodic)
@@ -669,16 +713,30 @@ def main():
                 f"{call:.4f} ms; bound {bms:.4f} ms ({by})")
         del T
         # the element-local kernel at this order (B2 on Dz, B3's launch on
-        # full D), device time beside its bound
-        for name, key in (("sumfact-zfma-periodic", "B2"),
-                          ("sumfact-fused", "B3")):
+        # full D) in turns against the colour design: device time beside
+        # the bound and the share of it
+        for name, key, periodic in (("sumfact-zfma-periodic", "B2", True),
+                                    ("sumfact-fused", "B3", False)):
             fn, arrays = P.paths[name]
-            t = graph_ms(lambda: fn(u, *arrays))
-            bnd = bound(nbytes(arrays[0], u, u), sumfact_flops(sf))
-            by_order[key][f"p{order}"] = {"ms": t, "bound_ms": bnd[0],
-                                          "bound_by": bnd[1]}
-            log(f"phase 8b: p={order} {name} ({key}) device ms per call "
-                f"{t:.4f}; bound {bnd[0]:.4f} ms ({bnd[1]})")
+            Dk = arrays[0]
+            err, _ = compare(lambda v: fn(v, Dk),
+                             lambda v: ksum.sumfact_apply_colour(
+                                 v, Dk, sf.tab, sf._mats, periodic), u)
+            assert err <= TOL[F32], (order, name, err)
+            k, c = in_turns(lambda: fn(u, Dk),
+                            lambda: ksum.sumfact_apply_colour(
+                                u, Dk, sf.tab, sf._mats, periodic),
+                            graph=True)
+            bnd = bound(nbytes(Dk, u, u), sumfact_flops(sf))
+            by_order[key][f"p{order}"] = {
+                "ms": min(k), "earlier_ms": min(c), "bound_ms": bnd[0],
+                "bound_by": bnd[1], "share": bnd[0] / min(k),
+                "earlier_share": bnd[0] / min(c)}
+            log(f"phase 8b: p={order} {name} ({key}) device ms per call, "
+                f"in turns colour/lane/lane/colour: lane {k}, colour {c}; "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}); share of the bound: "
+                f"lane {bnd[0] / min(k):.3f}, colour {bnd[0] / min(c):.3f}; "
+                f"lane vs colour max|d|/max|y| {err:.3e}")
         if order > 2:  # order 2: phase 7
             spa = P.structured_pa
             u_eT = spa.grid.gather(u)
@@ -704,7 +762,7 @@ def main():
             del spa, u_eT, BG, Dflat
         log(f"phase 8b: p={order} peak device memory of the setup and "
             f"the eight applies {peak / 2**30:.2f} GiB")
-        del P, sf, u, fn, arrays, ref_fn, ref_arrays
+        del P, sf, u, fn, arrays, ref_fn, ref_arrays, Dk
     torch.cuda.empty_cache()
 
     # -- 8c. slice 3: BE steps at orders 3 and 4 through B4 -----------------
@@ -717,9 +775,23 @@ def main():
             label = f"phase 8c: {label}(n=48, order={order})"
             log(f"{label}: {step.op.ndofs} DOFs, setup {setup_s:.2f} s")
             assert step.path == path, step.path
-            res_b, _, l_b = check_step(step, u0, (D,), f"{label} best_bind",
-                                       floor_ok=True)
-            fz, Dz = step.op.bind_zchain(use_periodic=periodic)
+            res_b, s_b, l_b = check_step(step, u0, (D,),
+                                         f"{label} best_bind", floor_ok=True)
+            # the same step through the colour design, in turns (lane
+            # above, colour, colour, lane): does the kernel's gain reach
+            # the step?
+            op = step.op
+            colour = lambda v, Dc: ksum.sumfact_apply_colour(
+                v, Dc, op.tab, op._mats, periodic)
+            step_s = {"lane": [s_b], "colour": []}
+            for name in ("colour", "colour", "lane"):
+                _, s, _ = check_step(step, u0, (D,), f"{label} {name}",
+                                     fn=colour if name == "colour" else None,
+                                     floor_ok=True)
+                step_s[name].append(s)
+            log(f"{label}: step s in turns (lane, colour, colour, lane): "
+                f"{step_s}")
+            fz, Dz = op.bind_zchain(use_periodic=periodic)
             res_z, _, l_z = check_step(step, u0, (Dz,), f"{label} zchain",
                                        fn=fz, floor_ok=True)
             assert l_z["zchain"] > 0 and l_z["sumfact"] == 0, l_z
@@ -733,7 +805,7 @@ def main():
                 b2_launches += l_b["sumfact"]
             else:
                 b3_launches += l_b["sumfact_fulld"]
-            del step, u0, D, Dz, fz, res_b, res_z
+            del step, op, colour, u0, D, Dz, fz, res_b, res_z
             torch.cuda.empty_cache()
 
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
@@ -755,10 +827,13 @@ def main():
                by_order=by_order["B1"]),
         record("sumfact_fused", "sumfact_fused.cu",
                "cmfem_tpu/ops/sumfact.py:563", b2_launches, b2_abs, b2_k,
-               b2_p, b2_bound, call_ms=b2_call, by_order=by_order["B2"]),
+               b2_p, b2_bound, call_ms=b2_call,
+               earlier_ms=by_order["B2"]["p2"]["earlier_ms"],
+               by_order=by_order["B2"]),
         record("sumfact_fused_fullD", "sumfact_fused.cu",
                "cmfem_tpu/ops/sumfact.py:365", b3_launches, b3_abs, b3_k,
                b3_p, b3_bound, call_ms=b3_call,
+               earlier_ms=by_order["B3"]["p2"]["earlier_ms"],
                max_abs_err_f64_mg_n48=mg_abs, by_order=by_order["B3"]),
         record("sumfact_zchain", "sumfact_zchain.cu",
                "cmfem_tpu/ops/sumfact.py:768", b4_launches,

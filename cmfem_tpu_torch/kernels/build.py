@@ -53,9 +53,11 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
         h.update(p.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    so_log = so.with_suffix(".log")  # nvcc's output, kept for cached loads
     t0 = time.perf_counter()
-    log = ""
-    if not so.exists():
+    if so.exists():
+        log = so_log.read_text() if so_log.exists() else ""
+    else:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)]
@@ -65,13 +67,20 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed building {name} "
                                f"(exit {proc.returncode}):\n{log}")
-        os.replace(tmp, so)  # atomic: concurrent builds race harmlessly
+        # atomic renames: concurrent builds race harmlessly
+        with tempfile.NamedTemporaryFile("w", dir=BUILD_DIR, suffix=".log",
+                                         delete=False) as f:
+            f.write(log)
+        os.replace(f.name, so_log)
+        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = (lib, time.perf_counter() - t0, log)
     return lib
 
 
 def build_info(name: str) -> tuple[float, str]:
-    """(seconds the first ``load_library`` call took, nvcc's output)."""
+    """(seconds the first ``load_library`` call took, nvcc's output from
+    the build of the loaded library, also when it was loaded from the
+    build directory)."""
     _, secs, log = _LIBS[name]
     return secs, log

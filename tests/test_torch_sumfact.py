@@ -12,7 +12,8 @@ kappa = 0.1 + z^2, on the uniform lattice (D varies in z) and on a lattice
 distorted inside (D varies in x, y and z at once).
 The CUDA kernel itself runs only on the card: the tests marked ``gpu`` hold
 it against the plain version there (float64 to 1e-12 max|y|; float32 to
-1e-5 max|y|, sums taken in another order, <= 125 terms per output)."""
+1e-5 max|y|, sums taken in another order, <= 125 terms per output, and on
+shared DOFs by atomics in an order that changes between runs)."""
 
 import numpy as np
 import pytest
@@ -275,10 +276,16 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", ["uniform", "kappa_z", "distorted"])
 @pytest.mark.parametrize("n,order", [((3, 4, 5), 1), ((3, 4, 5), 2),
-                                     ((2, 3, 4), 3), ((2, 2, 3), 4)])
+                                     ((2, 3, 4), 3), ((2, 2, 3), 4),
+                                     ((7, 5, 9), 2), ((7, 5, 9), 4)])
 def test_cuda_kernel_matches_plain(cuda, n, order, form):
     """Uniform D: z-periodic and full D; D varying by element (kappa(z),
-    and the distorted lattice): the full-D launch."""
+    and the distorted lattice): the full-D launch.  (7,5,9) is ragged: nx
+    is not a multiple of the elements per block.  Also: the colour design
+    (``sumfact_apply_colour``) against the lane kernel, and two calls of
+    the lane kernel against each other (its atomic sums on shared DOFs are
+    taken in an order that can change between calls), to the same
+    tolerances."""
     if form == "uniform":
         jops, jdata, ops, data = _forms(n, order)
     else:
@@ -296,9 +303,17 @@ def test_cuda_kernel_matches_plain(cuda, n, order, form):
                 before[0] + 1, before[1] + (not periodic))
             fp, Dp = op.bind(use_periodic=periodic)
             yp = fp(u, Dp)
+            colours = ksum.launches_colour
+            yc = ksum.sumfact_apply_colour(u, Dk, op.tab, op._mats, periodic)
+            assert ksum.launches_colour == colours + 1
+            y2 = fk(u, Dk)
             torch.cuda.synchronize()
-            err = float((yk - yp).abs().max() / yp.abs().max())
-            assert err <= tol, (dtype, periodic, err)
+            scale = yp.abs().max()
+            for what, y in (("lane", yk), ("colour", yc)):
+                err = float((y - yp).abs().max() / scale)
+                assert err <= tol, (what, dtype, periodic, err)
+            err = float((y2 - yk).abs().max() / scale)
+            assert err <= tol, ("two lane calls", dtype, periodic, err)
         assert op.best_bind()[2] == ("cuda-sumfact-zperiodic"
                                      if form == "uniform"
                                      else "cuda-sumfact-fullD")
@@ -319,3 +334,5 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         ksum.sumfact_apply(u.half(), op.Dz.half(), op.tab.half(), op._mats,
                            True)
+    with pytest.raises(ValueError):  # the colour entry checks the same
+        ksum.sumfact_apply_colour(u, op.D, op.tab, op._mats, True)
