@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. checks: a CUDA device, the card's name and power limit (nvidia-smi),
      the three kernel libraries built from cmfem_tpu_torch/csrc/, one nvcc
      each, all started together (build time and ptxas registers/spills
-     printed; the sum-factorization lane kernel's instantiations must not
-     spill);
+     printed; the sum-factorization lane kernel's instantiations and the
+     float32 instantiations of the tiled B^T D B kernel, hexes at orders
+     2-4, must not spill; that kernel's resident blocks per SM);
   2. the sum-factorization kernel (one launch of the lane kernel) and the
      earlier colour design (``sumfact_apply_colour``) against their plain
      version, orders 1-4 on the (3,4,5), (6,6,6) and (7,5,9) grids ((7,5,9)
@@ -51,8 +52,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain ``sumfact`` chain to 1e-5 max|y| and moves its own launch
      counter; median apply ms of one call (CUDA events, in turns against
      ``sumfact``) and MDOF/s of each path; the z-chain kernel alone on its
-     x/y fields beside its plain version, and B1 at orders 3 and 4 beside
-     its plain version (timed as in 7); the element-local kernel on Dz
+     x/y fields beside its plain version, and B1 (the tiled design) at
+     orders 3 and 4 beside its plain version (timed as in 7), with its
+     share of the bound; the element-local kernel on Dz
      (B2) and on full D (B3) in turns against the colour design (colour,
      lane, lane, colour; device time as in 7), each beside its bound and
      its share of the bound; peak
@@ -64,7 +66,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      float32 floor 16 eps = 1.907e-6 counts if it meets that) and the two
      solutions of a form agree to 1e-4 in the 2-norm; the ``best_bind``
      step is also timed in turns against the same step through the colour
-     design (lane, colour, colour, lane).
+     design (lane, colour, colour, lane); then the same kappa(z) step
+     through ``vc_entry(operator="pa")``, the element-batched operator in
+     entity numbering on the B^T D B kernel: it launches that kernel only,
+     converges like the others, and its solution, moved to the lattice,
+     agrees with the ``best_bind`` step's to 1e-4.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
@@ -282,21 +288,12 @@ def counts():
 
 def lane_kernel_resources(nvcc_log):
     """{"float N=5": (registers, spill bytes), ...} of the lane kernel's
-    instantiations, from ptxas -v: an entry's "Compiling entry" line, then
-    its spill line, then its registers line."""
-    out, name, spill = {}, None, 0
-    for line in nvcc_log.splitlines():
-        if "Compiling entry" in line:
-            m = re.search(r"sumfact_lane_kernelI([fd])Li(\d)E", line)
-            name = m and (f"{'float' if m[1] == 'f' else 'double'} "
-                          f"N={m[2]}")
-        elif name and "spill stores" in line:
-            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill",
-                                                   line))
-        elif name and "registers" in line:
-            out[name] = (int(re.search(r"Used (\d+) registers", line)[1]),
-                         spill)
-            name = None
+    instantiations, from ptxas -v."""
+    out = {}
+    for name, res in kbuild.ptxas_resources(nvcc_log,
+                                            "sumfact_lane_kernel").items():
+        m = re.search(r"sumfact_lane_kernelI([fd])Li(\d)E", name)
+        out[f"{'float' if m[1] == 'f' else 'double'} N={m[2]}"] = res
     return out
 
 
@@ -371,6 +368,17 @@ def main():
     log(f"phase 1: sumfact_lane_kernel<T, N = p+1> (registers, spill bytes "
         f"stored + loaded): {lane}")
     assert len(lane) == 8 and not any(s for _, s in lane.values()), lane
+    tiled = kbtdb.tiled_kernel_resources()
+    tiled_geo = {f"{'float' if size == 4 else 'double'} nd={nd}": (
+        geo.E, geo.THREADS, geo.STAGES, kbtdb.tiled_blocks_per_sm(nd, size))
+        for size in (4, 8) for _, nd, nq in kbtdb.TILED_SHAPES
+        for geo in [kbtdb.tile_geometry(nd, nq, size)]}
+    log(f"phase 1: btdb_tiled_kernel (registers, spill bytes stored + "
+        f"loaded): {tiled}; (elements per block, threads, ring stages, "
+        f"resident blocks per SM): {tiled_geo}")
+    assert len(tiled) == 12, tiled
+    assert not any(s for k, (_, s) in tiled.items()
+                   if k.startswith("float") and k.endswith("wide")), tiled
 
     # -- 2 and 8a. sum-factorization and z-chain kernels against their plain
     # versions ---------------------------------------------------------------
@@ -439,8 +447,8 @@ def main():
                 u_eT = torch.as_tensor(gen.standard_normal(
                     (nd, pa.Dflat.shape[2])), dtype=dtype, device=dev)
                 before = kbtdb.launches
-                err, _ = compare(lambda v: kbtdb.btdb_apply(pa.BG, v,
-                                                            pa.Dflat),
+                err, _ = compare(lambda v: kbtdb.btdb_apply(
+                                     pa.BG, v, pa.Dflat, pa.BG_stream),
                                  lambda v: kbtdb.btdb_plain(pa.BG, v,
                                                             pa.Dflat), u_eT)
                 assert kbtdb.launches == before + 1
@@ -545,15 +553,16 @@ def main():
 
     # B1 and B3 timings at the 48^3 shapes
     spa_op = spa_step.op
-    grid, BG = spa_op.grid, spa_op.BG
+    grid, BG, BGs = spa_op.grid, spa_op.BG, spa_op.BG_stream
+    assert BGs is not None  # the operator packed BG for the tiled design
     u_eT = grid.gather(u)
-    b1_err, b1_abs = compare(lambda v: kbtdb.btdb_apply(BG, v, Dflat_s),
+    b1_err, b1_abs = compare(lambda v: kbtdb.btdb_apply(BG, v, Dflat_s, BGs),
                              lambda v: kbtdb.btdb_plain(BG, v, Dflat_s), u_eT)
     assert b1_err <= TOL[F32], b1_err
-    b1_k, b1_p = in_turns(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s),
+    b1_k, b1_p = in_turns(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s, BGs),
                           lambda: kbtdb.btdb_plain(BG, u_eT, Dflat_s),
                           graph=True)
-    b1_call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s))
+    b1_call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s, BGs))
     b1_bound = bound(nbytes(BG, u_eT, Dflat_s, u_eT), btdb_flops(BG, Dflat_s))
     spa_op.use_kernel = False  # the same operator through btdb_plain
     spa_plain, _ = spa_op.bind()
@@ -740,32 +749,36 @@ def main():
         if order > 2:  # order 2: phase 7
             spa = P.structured_pa
             u_eT = spa.grid.gather(u)
-            BG, Dflat = spa.BG, spa.Dflat
+            BG, BGs, Dflat = spa.BG, spa.BG_stream, spa.Dflat
+            assert BGs is not None
             err, err_abs = compare(
-                lambda v: kbtdb.btdb_apply(BG, v, Dflat),
+                lambda v: kbtdb.btdb_apply(BG, v, Dflat, BGs),
                 lambda v: kbtdb.btdb_plain(BG, v, Dflat), u_eT)
             assert err <= TOL[F32], err
-            k, pl = in_turns(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat),
+            k, pl = in_turns(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat, BGs),
                              lambda: kbtdb.btdb_plain(BG, u_eT, Dflat),
                              graph=True)
-            call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat),
+            call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat, BGs),
                              reps=20)
             bms, by = bound(nbytes(BG, u_eT, Dflat, u_eT),
                             btdb_flops(BG, Dflat))
             by_order["B1"][f"hex_p{order}"] = {
                 "ms": min(k), "plain_ms": min(pl), "bound_ms": bms,
-                "bound_by": by, "max_abs_err": err_abs, "call_ms": call}
+                "bound_by": by, "share": bms / min(k),
+                "max_abs_err": err_abs, "call_ms": call}
             log(f"phase 8b: B1 at hex p={order} (ne={u_eT.shape[1]}): "
                 f"max|k-p|/max|p| = {err:.3e}, max|k-p| = {err_abs:.3e}; "
                 f"device ms per call kernel {k}, btdb_plain {pl}; one call "
-                f"{call:.4f} ms; bound {bms:.4f} ms ({by})")
+                f"{call:.4f} ms; bound {bms:.4f} ms ({by}), share of the "
+                f"bound {bms / min(k):.3f}")
             del spa, u_eT, BG, Dflat
         log(f"phase 8b: p={order} peak device memory of the setup and "
             f"the eight applies {peak / 2**30:.2f} GiB")
         del P, sf, u, fn, arrays, ref_fn, ref_arrays, Dk
     torch.cuda.empty_cache()
 
-    # -- 8c. slice 3: BE steps at orders 3 and 4 through B4 -----------------
+    # -- 8c. slice 3: BE steps at orders 3 and 4 through B4 and through B1 ---
+    pa_steps = {}
     for order in (3, 4):
         for label, make, periodic, path in (
                 ("vc_entry", vc_entry, False, "cuda-sumfact-fullD"),
@@ -801,11 +814,44 @@ def main():
                 f"(tol 1e-4)")
             assert d <= 1e-4, d
             b4_launches += l_z["zchain"]
+            del fz, Dz, res_z
+            if not periodic:
+                # the same kappa(z) step through the element-batched
+                # operator in entity numbering, on the B1 kernel alone
+                (pstep, (pu0, *parrays)), setup_s = timed(
+                    lambda: vc_entry(n=48, order=order, operator="pa",
+                                     dtype=F32))
+                assert pstep.path == "cuda-btdb", pstep.path
+                lat = pstep.lat
+                assert torch.equal(pu0, u0[lat])
+                pa_s = []
+                for _ in range(2):  # the first pays one-time costs
+                    res_pa, s, l_pa = check_step(
+                        pstep, pu0, parrays, f"{label} pa", floor_ok=True)
+                    pa_s.append(s)
+                    assert l_pa["btdb"] > 0 and not any(
+                        v for k, v in l_pa.items() if k != "btdb"), l_pa
+                    b1_launches += l_pa["btdb"]
+                d = rel2(torch.zeros_like(res_pa.x).index_copy_(
+                    0, lat, res_pa.x), res_b.x)
+                log(f"{label}: pa setup {setup_s:.2f} s; step s {pa_s}, "
+                    f"arnoldi={res_pa.inner_iters}, {l_pa['btdb']} B1 "
+                    f"launches per step (best_bind: {step_s['lane']} s, "
+                    f"arnoldi={res_b.inner_iters}, "
+                    f"{l_b['sumfact_fulld']} launches); pa vs best_bind "
+                    f"solution 2-norm rel {d:.3e} (tol 1e-4)")
+                assert d <= 1e-4, d
+                pa_steps[order] = {
+                    "step_s": min(pa_s), "arnoldi": res_pa.inner_iters,
+                    "launches": l_pa["btdb"],
+                    "best_bind_step_s": min(step_s["lane"]),
+                    "best_bind_arnoldi": res_b.inner_iters}
+                del pstep, pu0, parrays, lat, res_pa
             if periodic:
                 b2_launches += l_b["sumfact"]
             else:
                 b3_launches += l_b["sumfact_fulld"]
-            del step, op, colour, u0, D, Dz, fz, res_b, res_z
+            del step, op, colour, u0, D, res_b
             torch.cuda.empty_cache()
 
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
@@ -824,7 +870,7 @@ def main():
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,
-               by_order=by_order["B1"]),
+               by_order=by_order["B1"], pa_steps=pa_steps),
         record("sumfact_fused", "sumfact_fused.cu",
                "cmfem_tpu/ops/sumfact.py:563", b2_launches, b2_abs, b2_k,
                b2_p, b2_bound, call_ms=b2_call,

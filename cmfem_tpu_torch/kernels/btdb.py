@@ -7,31 +7,111 @@ replaces ``cmfem_tpu/ops/partial.py::_pallas_btdb``, the TPU's element-tile
 Pallas kernel); on a CPU tensor it runs ``btdb_plain``, the plain PyTorch
 version (a port of ``_xla_btdb``).  There is no fallback from one to the
 other.
+
+Hexes at orders 2-4 take the kernel's tiled design: a block of
+``tile_geometry(...).E`` elements, both products register-tiled, BG read as
+a stream of (16, NDP) tiles that ``pack_bg`` lays out once per BG (the
+operators do it at construction and hand the stream to every apply).  The
+geometry is decided here and checked by the C entry, which computes its own,
+on every launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from .build import load_library
+from .build import build_info, load_library, ptxas_resources
 
 # (m, nd, nq) the kernel is instantiated for: hexes (m = 4) and quads
-# (m = 3) at orders 1-4 with q1 = p + 1 Gauss points per axis (hexes at
-# order 4 through the kernel's tiled design)
+# (m = 3) at orders 1-4 with q1 = p + 1 Gauss points per axis
 KERNEL_SHAPES = ((4, 8, 8), (4, 27, 27), (4, 64, 64), (4, 125, 125),
                  (3, 4, 4), (3, 9, 9), (3, 16, 16), (3, 25, 25))
-# shapes whose BG the kernel reads with its rows padded (zero columns) to
-# this length: hexes at order 4, the kernel's tiled design
-PADDED_ROWS = {(4, 125, 125): 128}
+# the shapes of the tiled design: hexes at orders 2-4
+TILED_SHAPES = ((4, 27, 27), (4, 64, 64), (4, 125, 125))
+SMEM_MAX = 232448  # bytes of shared memory a block may use on the H100
 LIB_NAME = "cmfem_btdb"
 SOURCES = ["btdb.cu"]
+
+# the tiled design's tile: a thread holds TA rows x TE elements of a product
+# and TQ quadrature points of a slab; a stream tile has KC rows
+TE, TA, TQ, KC = 4, 8, 2, 16
+# its block: at most E_MAX[item size] elements and THREADS_MAX threads, a
+# ring of at most STAGES_MAX tiles that leaves BLOCKS[item size] resident
+# blocks per SM their shared memory (csrc/btdb.cu::Tile has the same)
+E_MAX = {4: 64, 8: 32}
+THREADS_MAX, STAGES_MAX = 128, 4
+BLOCKS = {4: 4, 8: 2}
 
 # Calls of the wrapper that launched the kernel.  Plain-version calls do
 # not count.
 launches = 0
+
+
+class TileGeometry(NamedTuple):
+    E: int        # elements per block
+    NDP: int      # DOFs padded to a multiple of 32; also the rows of a slab
+    QC: int       # quadrature points per slab, NDP // 4
+    NSLAB: int    # slabs, ceil(nq / QC)
+    HALF: int     # stream tiles per product and slab, NDP // KC
+    TILES: int    # tiles in the stream, NSLAB * 2 * HALF
+    THREADS: int  # (E // TE) element groups x (NDP // TA) row groups
+    STAGES: int   # tiles in the ring
+
+
+@functools.cache
+def tile_geometry(nd: int, nq: int, itemsize: int) -> TileGeometry:
+    """The tiled design's geometry for hexes with nd DOFs and nq points.
+
+    A block of THREADS = EG * AG threads owns E consecutive elements; thread
+    (eg, g) holds elements 4 eg .. 4 eg + 3 and rows 8 g .. 8 g + 7 of either
+    product.  Thread tid sits in warp tid // 32 at lane tid % 32, with
+    eg = (warp % (EG // 8)) * 8 + lane % 8 and
+    g = (warp // (EG // 8)) * 4 + lane // 8."""
+    NDP = -(-nd // 32) * 32
+    AG = NDP // TA
+    E = E_MAX[itemsize]
+    while E > 32 and E // TE * AG > THREADS_MAX:
+        E //= 2
+    threads = E // TE * AG
+    room = SMEM_MAX // BLOCKS[itemsize] - 1024 - 2 * NDP * E * itemsize
+    stages = min(STAGES_MAX, room // (KC * NDP * itemsize))
+    if stages < 2 or (KC * NDP * itemsize // 16) % threads:
+        raise ValueError(f"tile_geometry: nd={nd} at item size {itemsize} "
+                         f"does not tile")
+    QC = TQ * AG
+    NSLAB, HALF = -(-nq // QC), NDP // KC
+    return TileGeometry(E, NDP, QC, NSLAB, HALF, NSLAB * 2 * HALF, threads,
+                        stages)
+
+
+def stream_index(nd: int, nq: int, geo: TileGeometry) -> np.ndarray:
+    """(TILES, KC, NDP) indices into [BG.reshape(-1), 0]: BG (4*nq, nd) as
+    the tiled kernel consumes it.
+
+    Row j of slab c stands for (q, s) = (c*QC + j // 4, j % 4), BG row
+    s*nq + q.  Per slab, HALF tiles for the first product, tile kt holding
+    [kk][j] = BG[row(j), kt*KC + kk], then HALF tiles for the second, tile
+    jt holding [jj][a] = BG[row(jt*KC + jj), a]; the entry past BG's end
+    (a zero) where q >= nq or the DOF index >= nd."""
+    zero = 4 * nq * nd
+    NDP, HALF = geo.NDP, geo.HALF
+    idx = np.full((geo.NSLAB, 2 * HALF, KC, NDP), zero, dtype=np.int64)
+    j = np.arange(NDP)
+    dof = np.arange(NDP)
+    for c in range(geo.NSLAB):
+        q = c * geo.QC + j // 4
+        row = np.where(q < nq, (j % 4) * nq + q, -1)
+        entry = np.where((row[:, None] >= 0) & (dof[None, :] < nd),
+                         row[:, None] * nd + dof[None, :], zero)  # [j][dof]
+        idx[c, :HALF] = entry.T.reshape(HALF, KC, NDP)  # [kt][kk][j]
+        idx[c, HALF:] = entry.reshape(HALF, KC, NDP)    # [jt][jj][a]
+    return idx.reshape(geo.TILES, KC, NDP)
 
 
 def btdb_plain(BG, u_eT, Dflat):
@@ -52,15 +132,29 @@ def btdb_plain(BG, u_eT, Dflat):
     return BG.T @ torch.cat(rows, dim=0)
 
 
+def pack_bg(BG, m: int, nq: int):
+    """BG's tile stream (TILES, KC, NDP) for the tiled design, by one gather
+    on BG's device; None for a shape of the one-thread-per-element design,
+    which takes BG as it is.  An operator on a CUDA device packs its BG once
+    and hands the stream to every apply."""
+    nd = BG.shape[1]
+    if (m, nd, nq) not in TILED_SHAPES:
+        return None
+    geo = tile_geometry(nd, nq, BG.element_size())
+    idx = torch.as_tensor(stream_index(nd, nq, geo), device=BG.device)
+    return torch.cat([BG.reshape(-1), BG.new_zeros(1)])[idx]
+
+
 @functools.cache
 def _lib():
     lib = load_library(LIB_NAME, SOURCES)
     for fn in (lib.cmfem_btdb_apply_f32, lib.cmfem_btdb_apply_f64):
-        # BG, ldb, u, D, y, m, nd, nq, ne, stream
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] \
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-            + [ctypes.c_longlong, ctypes.c_void_p]
+        # BG, u, D, y, m, nd, nq, ne, e, ndp, threads, stages, tiles, stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.cmfem_btdb_tiled_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.cmfem_btdb_tiled_blocks_per_sm.restype = ctypes.c_int
     lib.cmfem_btdb_error_string.argtypes = [ctypes.c_int]
     lib.cmfem_btdb_error_string.restype = ctypes.c_char_p
     return lib
@@ -71,10 +165,36 @@ def build():
     _lib()
 
 
-def btdb_apply(BG, u_eT, Dflat):
+def tiled_kernel_resources() -> dict[str, tuple[int, int]]:
+    """{"float nd=64 wide": (registers, spill bytes), ...} of the tiled
+    kernel's instantiations, from ptxas -v of the loaded library ("wide":
+    16-byte accesses to u, D and y, the launch for ne a multiple of 4;
+    "narrow": element by element)."""
+    found = ptxas_resources(build_info(LIB_NAME)[1], "btdb_tiled_kernel")
+    out = {}
+    for name, res in found.items():
+        m = re.search(r"btdb_tiled_kernelI([fd]).*?4TileI[fd]Li(\d+)E"
+                      r".*?Lb([01])E", name)
+        out[f"{'float' if m[1] == 'f' else 'double'} nd={m[2]} "
+            f"{'wide' if m[3] == '1' else 'narrow'}"] = res
+    return out
+
+
+def tiled_blocks_per_sm(nd: int, itemsize: int) -> int:
+    """Resident blocks per SM of the tiled kernel on the current device."""
+    n = _lib().cmfem_btdb_tiled_blocks_per_sm(nd, itemsize)
+    if n <= 0:
+        raise RuntimeError(f"no tiled kernel for nd={nd}, item size "
+                           f"{itemsize} (returned {n})")
+    return n
+
+
+def btdb_apply(BG, u_eT, Dflat, packed=None):
     """y_eT (nd, ne): the CUDA kernel on a CUDA tensor, the plain version on
-    CPU.  Raises on anything the kernel does not take (device, dtype, a
-    shape outside KERNEL_SHAPES, a non-contiguous tensor)."""
+    CPU.  ``packed`` is ``pack_bg(BG, m, nq)`` where the caller keeps it (the
+    operators do); without it a tiled shape packs BG in this call.  Raises
+    on anything the kernel does not take (device, dtype, a shape outside
+    KERNEL_SHAPES, a non-contiguous tensor, a stream of another geometry)."""
     global launches
     if u_eT.device.type == "cpu":
         return btdb_plain(BG, u_eT, Dflat)
@@ -104,14 +224,24 @@ def btdb_apply(BG, u_eT, Dflat):
     lib = _lib()
     fn = (lib.cmfem_btdb_apply_f32 if u_eT.dtype == torch.float32
           else lib.cmfem_btdb_apply_f64)
-    ldb = PADDED_ROWS.get((m, nd, nq), nd)
-    if ldb != nd:
-        BG = torch.nn.functional.pad(BG, (0, ldb - nd))
+    geometry = (0, 0, 0, 0, 0)  # the one-thread-per-element design
     y = torch.empty_like(u_eT)
     with torch.cuda.device(u_eT.device):
+        if (m, nd, nq) in TILED_SHAPES:
+            geo = tile_geometry(nd, nq, u_eT.element_size())
+            geometry = (geo.E, geo.NDP, geo.THREADS, geo.STAGES, geo.TILES)
+            if packed is None:
+                packed = pack_bg(BG, m, nq)
+            want = (geo.TILES, KC, geo.NDP)
+            if (tuple(packed.shape) != want or packed.dtype != BG.dtype
+                    or packed.device != BG.device
+                    or not packed.is_contiguous()):
+                raise ValueError(f"btdb_apply: packed is not pack_bg's "
+                                 f"stream {want} of BG")
+            BG = packed
         stream = torch.cuda.current_stream(u_eT.device).cuda_stream
-        err = fn(BG.data_ptr(), ldb, u_eT.data_ptr(), Dflat.data_ptr(),
-                 y.data_ptr(), m, nd, nq, ne, stream)
+        err = fn(BG.data_ptr(), u_eT.data_ptr(), Dflat.data_ptr(),
+                 y.data_ptr(), m, nd, nq, ne, *geometry, stream)
     if err != 0:
         msg = lib.cmfem_btdb_error_string(err).decode()
         raise RuntimeError(f"btdb kernel launch failed: {msg} ({err})")

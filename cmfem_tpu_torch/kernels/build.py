@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -84,3 +85,22 @@ def build_info(name: str) -> tuple[float, str]:
     build directory)."""
     _, secs, log = _LIBS[name]
     return secs, log
+
+
+def ptxas_resources(nvcc_log: str, entry: str) -> dict[str, tuple[int, int]]:
+    """{mangled entry name: (registers, spill bytes stored + loaded)} of the
+    kernels whose mangled name contains ``entry``, from ``ptxas -v``: an
+    entry's "Compiling entry" line, then its spill line, then its registers
+    line."""
+    out, name, spill = {}, None, 0
+    for line in nvcc_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"'(\w+)'", line)
+            name = m[1] if m and entry in m[1] else None
+        elif name and "spill stores" in line:
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif name and "registers" in line:
+            out[name] = (int(re.search(r"Used (\d+) registers", line)[1]),
+                         spill)
+            name = None
+    return out

@@ -18,7 +18,7 @@ import torch
 
 from .assembly import SpaceOps, OperatorData
 from ..core.reference_elements import get_reference_element, HEXAHEDRON
-from ..kernels.btdb import btdb_apply, btdb_plain
+from ..kernels.btdb import btdb_apply, btdb_plain, pack_bg
 
 
 def _tensor(a, device, dtype):
@@ -27,6 +27,15 @@ def _tensor(a, device, dtype):
     if not torch.is_tensor(a):
         a = torch.from_numpy(np.array(a))
     return a.to(device=device, dtype=dtype)
+
+
+def _element_stage(op):
+    """fn(u_eT, Dflat) -> y_eT of an operator: the B1 kernel wrapper with the
+    operator's BG and its packed stream, or the plain version."""
+    BG, packed = op.BG, op.BG_stream
+    if op.use_kernel:
+        return lambda u_eT, Dflat: btdb_apply(BG, u_eT, Dflat, packed)
+    return lambda u_eT, Dflat: btdb_plain(BG, u_eT, Dflat)
 
 
 def pack_qp_blocks_T(ops: SpaceOps, data: OperatorData, dtype=torch.float32,
@@ -94,6 +103,9 @@ class PAOperator:
         self.nscalar = int(nscalar)
         self.Dflat = Dflat.contiguous()
         self.BG = BG.contiguous()
+        # the kernel's layout of BG, once and not per apply
+        self.BG_stream = pack_bg(self.BG, self.m, self.nq) \
+            if use_kernel and self.device.type == "cuda" else None
         # element DOFs in the transposed layout (nd, ne), so that u[eldofs_T]
         # is u_eT and index_add_ reads it flat, with no copy per apply
         self.eldofs_T = eldofs.to(device=self.device,
@@ -104,11 +116,11 @@ class PAOperator:
         """(fn(u, Dflat, eldofs_T) -> y, Dflat, eldofs_T): the apply, with
         the big arrays passed as arguments (the JAX package's contract; the
         element DOFs travel transposed, (nd, ne))."""
-        BG, nscalar, dtype = self.BG, self.nscalar, self.dtype
-        apply_ = btdb_apply if self.use_kernel else btdb_plain
+        nscalar, dtype = self.nscalar, self.dtype
+        apply_ = _element_stage(self)
 
         def fn(u, Dflat, eldofs_T):
-            y_eT = apply_(BG, u.to(dtype)[eldofs_T], Dflat)
+            y_eT = apply_(u.to(dtype)[eldofs_T], Dflat)
             y = torch.zeros(nscalar, dtype=dtype, device=y_eT.device)
             return y.index_add_(0, eldofs_T.view(-1), y_eT.view(-1))
 
@@ -212,15 +224,18 @@ class StructuredPAOperator:
         self.m = int(round(Dflat.shape[0] ** 0.5))
         self.Dflat = Dflat.contiguous()
         self.BG = BG.contiguous()
+        # the kernel's layout of BG, once and not per apply
+        self.BG_stream = pack_bg(self.BG, self.m, Dflat.shape[1]) \
+            if use_kernel and self.device.type == "cuda" else None
         self.use_kernel = use_kernel
 
     def bind(self):
         """(fn(u, Dflat) -> y, Dflat); see PAOperator.bind."""
-        grid, BG, dtype = self.grid, self.BG, self.dtype
-        apply_ = btdb_apply if self.use_kernel else btdb_plain
+        grid, dtype = self.grid, self.dtype
+        apply_ = _element_stage(self)
 
         def fn(u, Dflat):
-            return grid.scatter(apply_(BG, grid.gather(u.to(dtype)), Dflat))
+            return grid.scatter(apply_(grid.gather(u.to(dtype)), Dflat))
 
         return fn, self.Dflat
 

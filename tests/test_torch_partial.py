@@ -10,7 +10,10 @@ kappa = 0.1 + z^2 (0.1 + y^2 on quads).  The CUDA kernel runs only on the
 card: the test marked ``gpu`` holds it against the plain version there
 (float64 to 1e-12 max|y|; float32 to 1e-5 max|y|: each output sums
 m*nq <= 500 products twice, in another order), at every instantiated
-shape, hexes and quads at orders 1-4."""
+shape, hexes and quads at orders 1-4, with element counts that are no
+multiple of the block or of 4, on another stream, and twice (the kernel has
+no atomics: two calls agree bitwise).  The tiled design's indexing (hexes at
+orders 2-4) is emulated on the CPU in tests/test_torch_partial_tiles.py."""
 
 import numpy as np
 import pytest
@@ -78,7 +81,8 @@ def _check(y, y_ref, tol):
     np.testing.assert_allclose(y.numpy() / scale, y_ref / scale, atol=tol)
 
 
-@pytest.mark.parametrize("m,nd,nq", [(4, 27, 27), (3, 9, 9), (4, 8, 27)])
+@pytest.mark.parametrize("m,nd,nq", [(4, 27, 27), (3, 9, 9), (4, 8, 27),
+                                     (4, 64, 64)])
 def test_btdb_plain_matches_xla_btdb(m, nd, nq):
     rng = np.random.default_rng(m * 100 + nd)
     ne = 37
@@ -198,23 +202,54 @@ def cuda():
     return torch.device("cuda")
 
 
+def _cuda_err(args):
+    before = kbtdb.launches
+    yk = kbtdb.btdb_apply(*args)
+    assert kbtdb.launches == before + 1
+    yp = kbtdb.btdb_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(yk).all()
+    return float((yk - yp).abs().max() / yp.abs().max()), yk
+
+
 @pytest.mark.gpu
 def test_cuda_btdb_kernel_matches_plain(cuda):
     rng = np.random.default_rng(1)
     for m, nd, nq in kbtdb.KERNEL_SHAPES:
-        ne = 1000 + nd  # not a multiple of the block
-        BG, u, D = (rng.standard_normal(s) for s in
-                    ((m * nq, nd), (nd, ne), (m * m, nq, ne)))
-        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-            args = [torch.as_tensor(a, dtype=dtype, device=cuda)
-                    for a in (BG, u, D)]
-            before = kbtdb.launches
-            yk = kbtdb.btdb_apply(*args)
-            assert kbtdb.launches == before + 1
-            yp = kbtdb.btdb_plain(*args)
-            torch.cuda.synchronize()
-            err = float((yk - yp).abs().max() / yp.abs().max())
-            assert err <= tol, (m, nd, nq, dtype, err)
+        # no multiple of the block; for the tiled design (hexes at orders
+        # 2-4) also no multiple of 4 (scalar loads), below one block, 1
+        nes = [1000 + nd]
+        if (m, nd, nq) in kbtdb.TILED_SHAPES:
+            nes += [1064, 1066, 60, 1]
+        for ne in nes:
+            BG, u, D = (rng.standard_normal(s) for s in
+                        ((m * nq, nd), (nd, ne), (m * m, nq, ne)))
+            for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+                args = [torch.as_tensor(a, dtype=dtype, device=cuda)
+                        for a in (BG, u, D)]
+                err, yk = _cuda_err(args)
+                assert err <= tol, (m, nd, nq, ne, dtype, err)
+                # no atomics: a second call gives the same bits
+                assert torch.equal(kbtdb.btdb_apply(*args), yk)
+                # on another stream than the default one
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    ys = kbtdb.btdb_apply(*args)
+                side.synchronize()
+                assert torch.equal(ys, yk), (m, nd, nq, ne, dtype)
+                # u_eT at an address that is no multiple of 16 bytes
+                shifted = torch.empty(u.size + 1, dtype=dtype,
+                                      device=cuda)[1:].view(nd, ne)
+                shifted.copy_(args[1])
+                assert torch.equal(
+                    kbtdb.btdb_apply(args[0], shifted, args[2]), yk)
+    # ne = 0: nothing to launch on, an empty result
+    for m, nd, nq in ((4, 64, 64), (4, 8, 8)):
+        y0 = kbtdb.btdb_apply(torch.zeros((m * nq, nd), device=cuda),
+                              torch.zeros((nd, 0), device=cuda),
+                              torch.zeros((m * m, nq, 0), device=cuda))
+        assert tuple(y0.shape) == (nd, 0)
     with pytest.raises(ValueError):  # (m, nd, nq) not instantiated
         kbtdb.btdb_apply(*[torch.zeros(s, device=cuda) for s in
                            ((4 * 8, 27), (27, 5), (16, 8, 5))])
@@ -222,3 +257,26 @@ def test_cuda_btdb_kernel_matches_plain(cuda):
         kbtdb.btdb_apply(torch.zeros((32, 8), device=cuda),
                          torch.zeros((5, 8), device=cuda).T,
                          torch.zeros((16, 8, 5), device=cuda))
+
+
+@pytest.mark.gpu
+def test_cuda_btdb_tiled_kernel_occupancy_and_packed_stream(cuda):
+    """The tiled kernel keeps the blocks per SM its ring was sized for, and
+    a stream packed ahead gives what packing in the call gives."""
+    for nd in (27, 64, 125):
+        assert kbtdb.tiled_blocks_per_sm(nd, 4) >= kbtdb.BLOCKS[4]
+        assert kbtdb.tiled_blocks_per_sm(nd, 8) >= kbtdb.BLOCKS[8]
+    rng = np.random.default_rng(2)
+    BG, u, D = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                                device=cuda)
+                for s in ((256, 64), (64, 128), (16, 64, 128)))
+    packed = kbtdb.pack_bg(BG, 4, 64)
+    geo = kbtdb.tile_geometry(64, 64, 4)
+    assert tuple(packed.shape) == (geo.TILES, kbtdb.KC, geo.NDP)
+    assert torch.equal(kbtdb.btdb_apply(BG, u, D, packed),
+                       kbtdb.btdb_apply(BG, u, D))
+    with pytest.raises(ValueError, match="packed"):  # another order's stream
+        kbtdb.btdb_apply(BG, u, D, kbtdb.pack_bg(
+            torch.zeros((108, 27), device=cuda), 4, 27))
+    # the one-thread-per-element shapes take BG as it is
+    assert kbtdb.pack_bg(torch.zeros((32, 8), device=cuda), 4, 8) is None
