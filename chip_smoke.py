@@ -26,7 +26,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. the B^T D B kernel against its plain version: hexes at orders 1-4 on
      (3,4,5) and quads at orders 1-4 on (7,5), variable conductivity,
      float64 to 1e-12 max|y|, float32 to 1e-5 max|y| (each output sums
-     m*nq <= 256 products twice, in another order);
+     m*nq <= 256 products twice, in another order); those operators say
+     ``path == "cuda-btdb"``.  Elements the kernel has no instantiation for
+     (triangles at orders 1-3, hexes at orders 2 and 4 under a rule with
+     p + 2 points per axis; the spaces of both packages stop at order 4)
+     take ``path == "plain"``, leave the kernel's launch count alone and
+     agree with ``BilinearForm.apply`` to the same tolerances;
   4. slice 1's main path: ``entry(n=48, order=2)`` (912,673 DOFs, float32),
      one GMRES backward-Euler step through the z-periodic kernel, checked
      for convergence and against the same step through the plain version;
@@ -54,7 +59,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``sumfact``) and MDOF/s of each path; the z-chain kernel alone on its
      x/y fields beside its plain version, and B1 (the tiled design) at
      orders 3 and 4 beside its plain version (timed as in 7), with its
-     share of the bound; the element-local kernel on Dz
+     share of the bound; ``PAOperator.bind()``'s apply alone in entity
+     numbering (``u[eldofs_T]``, B1, ``index_add_``; device time as in 7)
+     beside B1's, at every order; the element-local kernel on Dz
      (B2) and on full D (B3) in turns against the colour design (colour,
      lane, lane, colour; device time as in 7), each beside its bound and
      its share of the bound; peak
@@ -66,18 +73,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      float32 floor 16 eps = 1.907e-6 counts if it meets that) and the two
      solutions of a form agree to 1e-4 in the 2-norm; the ``best_bind``
      step is also timed in turns against the same step through the colour
-     design (lane, colour, colour, lane); then the same kappa(z) step
+     design (lane, colour, lane); then the same kappa(z) step
      through ``vc_entry(operator="pa")``, the element-batched operator in
      entity numbering on the B^T D B kernel: it launches that kernel only,
      converges like the others, and its solution, moved to the lattice,
-     agrees with the ``best_bind`` step's to 1e-4.
+     agrees with the ``best_bind`` step's to 1e-4;
+  9. slice 6, the application drivers through ``run(cfg)`` on the card, in
+     float64, on GMSH files written here: (a) ``linear_cd_transient`` on
+     64 x 64 quads refined twice (65,536 elements, order 2, 263,169 DOFs,
+     three Peclet cases), dt = 1e-3, 5 backward-Euler steps with
+     Jacobi-GMRES in the host loop and again with ``scan_stepping``: every
+     solve converges, the two CSVs agree to 1e-10, the relative L2 errors
+     are finite and no larger than the JAX driver's on this mesh (times
+     1.001); one SDIRK2 step; (b) ``diffusion_mms`` on 32 x 32 x 2 triangles
+     refined once, order 2, 3 steps with Jacobi-CG and with ``GeometricMG``
+     (three levels): both converge and the final L2 errors agree to 1e-8;
+     the point locator that ran is printed; (c) ``linear_cd_2d`` (order 3,
+     64 x 64 quads) and ``linear_cd_2d_circle`` (order 2, the square mapped
+     onto the unit disc, 32 x 32 x 2 triangles refined once): GMRES
+     converges.  The drivers apply their forms with torch einsums and
+     ``index_add_``: no kernel is on this path, and no launch count moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
 sum-factorization kernel also ``earlier_ms``, the colour design's time in
-the same run), the card's name and power limit, and {"ok": true,
+the same run), before it the drivers' JSON record (DOFs, steps, seconds per
+step, Krylov iterations, errors), then the card's name and power limit, and
+{"ok": true,
 "device": {...}}.  Imports no JAX.
 """
 
@@ -89,6 +113,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -102,11 +127,16 @@ from cmfem_tpu_torch.core import (  # noqa: E402
     FESpace,
     make_cartesian_mesh_2d,
     make_cartesian_mesh_3d,
+    write_gmsh,
 )
 from cmfem_tpu_torch.entry import (  # noqa: E402
     BETA, DT, OPERATORS, PATHS, entry, mg_solve, operator_paths, spd_step,
     vc_entry,
 )
+from cmfem_tpu_torch.apps import (  # noqa: E402
+    diffusion_mms, linear_cd_2d, linear_cd_2d_circle, linear_cd_transient,
+)
+from cmfem_tpu_torch.core import pointlocate  # noqa: E402
 from cmfem_tpu_torch.kernels import btdb as kbtdb  # noqa: E402
 from cmfem_tpu_torch.kernels import build as kbuild  # noqa: E402
 from cmfem_tpu_torch.kernels import sumfact as ksum  # noqa: E402
@@ -139,6 +169,18 @@ def distort(v):
     x + 0.03 prod_d (1 + x_d) sin(pi x_d) in every component."""
     return v + 0.03 * np.prod((1 + v) * np.sin(np.pi * v), axis=1,
                               keepdims=True)
+
+
+def disc_mesh(n):
+    """The unit disc as n x n x 2 triangles: the square [-1, 1]^2 under
+    (x, y) -> (x sqrt(1 - y^2/2), y sqrt(1 - x^2/2)), which takes the
+    square's boundary onto the unit circle."""
+    mesh = make_cartesian_mesh_2d(n, n, sx=2.0, sy=2.0, x0=-1.0, y0=-1.0,
+                                  geom="triangle")
+    x, y = mesh.vertices[:, 0], mesh.vertices[:, 1]
+    return mesh.with_vertices(np.stack(
+        [x * np.sqrt(1.0 - 0.5 * y * y), y * np.sqrt(1.0 - 0.5 * x * x)],
+        axis=1))
 
 
 def cdr(f):
@@ -340,6 +382,152 @@ def check_step(step, u0, arrays, label, fn=None, floor_ok=False):
     return res, secs, launched
 
 
+# relative L2 errors of the JAX driver (cmfem_tpu.apps.linear_cd_transient,
+# float64 on a CPU) after 5 backward-Euler steps of dt = 1e-3 on the 9a mesh,
+# Peclet 1, 10, 100: the level the port's errors are held to
+JAX_9A_REL_L2 = (0.027785646940431372, 0.03062068928657793,
+                 0.040363822834497944)
+
+
+def read_csv(path):
+    with open(path) as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    return rows[0], np.array([[float(v) for v in r] for r in rows[1:]])
+
+
+def step_seconds(timing):
+    """Median seconds per step of a driver's per-step timing records, and
+    the share of it spent outside the solve (right-hand sides, error norms,
+    CSV and VTU output)."""
+    total = statistics.median(t["total"] for t in timing)
+    solve = statistics.median(t["solve"] for t in timing)
+    return total, 1.0 - solve / total
+
+
+def run_drivers(device, tmp, n_cd=64, ref_cd=2, n_tri=32, steps=5,
+                rel_l2_limit=None):
+    """Phase 9: the four application drivers through ``run(cfg)``; returns
+    the ``drivers`` record.  The sizes are arguments so that the control
+    flow can be rehearsed small on a CPU."""
+    mesh = lambda name, m: write_gmsh(m, os.path.join(tmp, name))
+    quads = mesh("quads.msh", make_cartesian_mesh_2d(n_cd, n_cd))
+    tris = mesh("tris.msh", make_cartesian_mesh_2d(n_tri, n_tri,
+                                                   geom="triangle"))
+    disc = mesh("disc.msh", disc_mesh(n_tri))
+    out = lambda name: os.path.join(tmp, name)
+    records = []
+
+    # -- 9a. linear_cd_transient: host loop, scan_stepping, one SDIRK2 step
+    cfg = {"mesh_file": quads, "serial_ref_levels": ref_cd, "order": 2,
+           "dt": 1e-3, "t_final": steps * 1e-3, "save_paraview": False}
+    runs = {}
+    for name, extra in (("host", {}), ("scan", {"scan_stepping": True}),
+                        ("sdirk2", {"time_integrator": "sdirk2",
+                                    "t_final": 1e-3})):
+        reset_counts()
+        r, secs = timed(lambda: linear_cd_transient.run(
+            {**cfg, **extra, "output_path": out(f"cd_{name}")},
+            device=device))
+        assert not any(counts().values()), counts()
+        assert r["converged"], f"9a {name}: a GMRES solve did not converge"
+        assert np.isfinite(r["c"]).all()
+        per_step, other = step_seconds(r["timing"])
+        nsteps = len(r["timing"])
+        rel = [r["final_errors"][k] for k in (3, 5, 7)]
+        log(f"phase 9a: linear_cd_transient {name}: {r['fes'].nscalar} DOFs "
+            f"x 3 Peclet cases, {nsteps} steps, run {secs:.2f} s, median "
+            f"{per_step:.4f} s/step ({other:.1%} outside the solves), "
+            f"Arnoldi steps per step {sum(r['arnoldi']) / nsteps:.0f} "
+            f"(all converged), final rel L2 {rel}")
+        assert all(np.isfinite(rel)) and all(v > 0 for v in rel), rel
+        runs[name] = r
+        records.append({
+            "driver": "linear_cd_transient", "variant": name,
+            "dofs": r["fes"].nscalar, "steps": nsteps, "run_s": secs,
+            "s_per_step": per_step, "share_outside_solve": other,
+            "krylov_iters_per_step": sum(r["arnoldi"]) / nsteps,
+            "rel_l2": rel})
+    _, v_host = read_csv(os.path.join(out("cd_host"), "error_history.csv"))
+    _, v_scan = read_csv(os.path.join(out("cd_scan"), "error_history.csv"))
+    d_csv = float(np.abs(v_host - v_scan).max())
+    log(f"phase 9a: host loop vs scan_stepping CSV max|d| = {d_csv:.3e} "
+        f"(tol 1e-10), solutions max|d| = "
+        f"{np.abs(runs['host']['c'] - runs['scan']['c']).max():.3e}")
+    assert v_host.shape == v_scan.shape == (steps + 1, 8)
+    assert d_csv <= 1e-10, d_csv
+    if rel_l2_limit is not None:
+        rel = [runs["host"]["final_errors"][k] for k in (3, 5, 7)]
+        log(f"phase 9a: rel L2 {rel} against the JAX driver's "
+            f"{rel_l2_limit} on this mesh (x 1.001)")
+        assert all(a <= 1.001 * b for a, b in zip(rel, rel_l2_limit)), rel
+
+    # -- 9b. diffusion_mms on triangles: Jacobi-CG and GeometricMG-CG
+    cfg = {"mesh_file": tris, "serial_ref_levels": 1, "order": 2,
+           "dt": 1e-2, "t_final": 3e-2}
+    mms = {}
+    for solver in ("jacobi", "mg"):
+        pointlocate.last_locator = None
+        reset_counts()
+        r, secs = timed(lambda: diffusion_mms.run(
+            {**cfg, "linear_solver": solver, "output_path": out(f"mms_{solver}"),
+             "save_paraview": solver == "jacobi", "paraview_every": 3},
+            device=device))
+        assert not any(counts().values()), counts()
+        assert r["converged"], f"9b {solver}: a CG solve did not converge"
+        per_step, other = step_seconds(r["timing"])
+        log(f"phase 9b: diffusion_mms linear_solver={solver}: "
+            f"{r['fes'].nscalar} DOFs, {len(r['timing'])} steps, run "
+            f"{secs:.2f} s, median {per_step:.4f} s/step ({other:.1%} outside "
+            f"the solve), CG iterations per step {r['solve_iters']}, final "
+            f"L2 {r['final_l2']:.6e} Linf {r['final_linf']:.6e}"
+            + (f"; point locator: {pointlocate.last_locator}"
+               if solver == "mg" else ""))
+        mms[solver] = r
+        records.append({
+            "driver": "diffusion_mms", "variant": solver,
+            "dofs": r["fes"].nscalar, "steps": len(r["timing"]),
+            "run_s": secs, "s_per_step": per_step,
+            "share_outside_solve": other,
+            "krylov_iters_per_step": r["solve_iters"],
+            "l2": r["final_l2"], "linf": r["final_linf"],
+            "point_locator": pointlocate.last_locator})
+    assert pointlocate.last_locator in ("native", "numpy")
+    vtus = [f for _, _, fs in os.walk(out("mms_jacobi")) for f in fs
+            if f.endswith((".vtu", ".pvd"))]
+    assert len(vtus) >= 3, vtus  # steps 0 and 3 and the PVD index
+    d_l2 = abs(mms["mg"]["final_l2"] - mms["jacobi"]["final_l2"])
+    log(f"phase 9b: MG vs Jacobi final L2 |d| = {d_l2:.3e} (tol 1e-8), "
+        f"solutions max|d| = "
+        f"{np.abs(mms['mg']['u'] - mms['jacobi']['u']).max():.3e}; "
+        f"{len(vtus)} VTU/PVD files written")
+    assert d_l2 <= 1e-8 and 0 < mms["mg"]["final_l2"] < 1e-4, d_l2
+    assert max(mms["mg"]["solve_iters"]) < min(mms["jacobi"]["solve_iters"])
+
+    # -- 9c. the steady drivers
+    for app, name, cfg in (
+            (linear_cd_2d, "linear_cd_2d", {"mesh_file": quads, "order": 3}),
+            (linear_cd_2d_circle, "linear_cd_2d_circle",
+             {"mesh_file": disc, "serial_ref_levels": 1, "order": 2})):
+        reset_counts()
+        r, secs = timed(lambda: app.run(
+            {**cfg, "output_path": out(name), "save_paraview": False},
+            device=device))
+        assert not any(counts().values()), counts()
+        res = r["solve"]
+        log(f"phase 9c: {name}: {r['fes'].nscalar} DOFs, run {secs:.2f} s, "
+            f"GMRES {r['solve_seconds']:.3f} s, cycles={res.iters} "
+            f"arnoldi={res.inner_iters} converged={res.converged} "
+            f"rel_residual={res.rel_residual:.3e}; rel L2 {r['rel_l2']:.6e}")
+        assert res.converged and np.isfinite(r["u"]).all()
+        assert 0 < r["rel_l2"] < 1e-2, r["rel_l2"]
+        records.append({
+            "driver": name, "dofs": r["fes"].nscalar, "steps": 1,
+            "run_s": secs, "s_per_step": r["solve_seconds"],
+            "krylov_iters_per_step": res.inner_iters,
+            "abs_l2": r["abs_l2"], "rel_l2": r["rel_l2"]})
+    return records
+
+
 def main():
     t_start = time.perf_counter()
     # -- 1. checks --------------------------------------------------------
@@ -443,6 +631,7 @@ def main():
             data = vc(BilinearForm(ops), dim).assemble()
             for dtype in (torch.float64, F32):
                 pa = PAOperator(ops, data, dtype=dtype)
+                assert pa.path == "cuda-btdb", pa.path
                 nd = pa.BG.shape[1]
                 u_eT = torch.as_tensor(gen.standard_normal(
                     (nd, pa.Dflat.shape[2])), dtype=dtype, device=dev)
@@ -458,6 +647,38 @@ def main():
                     f"max|k-p|/max|p| = {err:.3e} (tol {TOL[dtype]:.0e}) "
                     f"{'ok' if ok else 'FAIL'}")
                 assert ok, (dim, order, dtype, err)
+
+    # elements the kernel has no instantiation for: the plain path, chosen
+    # at construction by shape, against BilinearForm.apply
+    tri = make_cartesian_mesh_2d(7, 5, geom="triangle")
+    for mesh, dim, order, quad_order in (
+            (tri, 2, 1, 2), (tri, 2, 2, 4), (tri, 2, 3, 6),
+            (make_cartesian_mesh_3d(3, 4, 5), 3, 2, 7),
+            (make_cartesian_mesh_3d(3, 4, 5), 3, 4, 11)):
+        ops = SpaceOps(FESpace(mesh, order), quad_order=quad_order,
+                       device=dev)
+        form = vc(BilinearForm(ops), dim)
+        data = form.assemble()
+        u64 = torch.as_tensor(gen.standard_normal(ops.fes.nscalar),
+                              device=dev)
+        y_ref = form.apply(data, u64)
+        for dtype in (torch.float64, F32):
+            pa = PAOperator(ops, data, dtype=dtype)
+            before = kbtdb.launches
+            err = rel_err(pa(u64.to(dtype)).double(), y_ref)
+            ok = (err <= TOL[dtype] and pa.path == "plain"
+                  and pa.BG_stream is None and kbtdb.launches == before)
+            log(f"phase 3: {mesh.geom} p={order} (m={pa.m}, "
+                f"nd={pa.BG.shape[1]}, nq={pa.nq}) {str(dtype)[6:]}: path "
+                f"{pa.path}, max|y - apply|/max|y| = {err:.3e} (tol "
+                f"{TOL[dtype]:.0e}), B1 launches moved "
+                f"{kbtdb.launches - before} {'ok' if ok else 'FAIL'}")
+            assert ok, (mesh.geom, order, dtype, err, pa.path)
+    try:  # the wrapper itself still refuses such a shape on the card
+        kbtdb.btdb_apply(pa.BG, u64.to(F32)[pa.eldofs_T], pa.Dflat)
+        raise AssertionError("btdb_apply took a shape it has no kernel for")
+    except ValueError as e:
+        log(f"phase 3: btdb_apply on that shape raises: {e}")
 
     # -- 4. slice 1's main path -----------------------------------------------
     (step, (u0, D)), setup_s = timed(lambda: entry(n=48, order=2, dtype=F32))
@@ -564,7 +785,7 @@ def main():
                           graph=True)
     b1_call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s, BGs))
     b1_bound = bound(nbytes(BG, u_eT, Dflat_s, u_eT), btdb_flops(BG, Dflat_s))
-    spa_op.use_kernel = False  # the same operator through btdb_plain
+    spa_op.path = "plain"  # the same operator through btdb_plain
     spa_plain, _ = spa_op.bind()
     b1g_k, b1g_p = in_turns(lambda: spa_step.fn(u, Dflat_s),
                             lambda: spa_plain(u, Dflat_s))
@@ -651,6 +872,7 @@ def main():
     b4_launches = 0
     sweep, b4 = {}, {}
     by_order = {"B1": {}, "B2": {}, "B3": {}}
+    pa_alone = {}
     for order in (2, 3, 4):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -746,6 +968,26 @@ def main():
                 f"bound {bnd[0]:.4f} ms ({bnd[1]}); share of the bound: "
                 f"lane {bnd[0] / min(k):.3f}, colour {bnd[0] / min(c):.3f}; "
                 f"lane vs colour max|d|/max|y| {err:.3e}")
+        # the PA apply alone, in entity numbering: gather, B1, index_add_
+        # (the sweep's "pa" also moves u and y between the numberings)
+        pa_fn, pa_D, pa_el = P.pa.bind()
+        assert P.pa.path == "cuda-btdb", P.pa.path
+        ue = u[P.lat]
+        k_pa = [graph_ms(lambda: pa_fn(ue, pa_D, pa_el)) for _ in range(2)]
+        k_gather = graph_ms(lambda: ue[pa_el])
+        y_eT = ue[pa_el]
+        k_scatter = graph_ms(lambda: torch.zeros_like(ue).index_add_(
+            0, pa_el.view(-1), y_eT.view(-1)))
+        k_moves = graph_ms(lambda: torch.empty_like(u).index_copy_(
+            0, P.lat, u[P.lat]))
+        pa_alone[f"p{order}"] = {
+            "ms": min(k_pa), "gather_ms": k_gather, "scatter_ms": k_scatter,
+            "sweep_lattice_moves_ms": k_moves}
+        log(f"phase 8b: p={order} PAOperator.bind() apply alone, entity "
+            f"numbering, device ms per call {k_pa}; u[eldofs_T] alone "
+            f"{k_gather:.4f}, index_add_ alone {k_scatter:.4f}; the sweep's "
+            f"two lattice moves alone {k_moves:.4f}")
+        del pa_fn, pa_D, pa_el, ue, y_eT
         if order > 2:  # order 2: phase 7
             spa = P.structured_pa
             u_eT = spa.grid.gather(u)
@@ -791,18 +1033,17 @@ def main():
             res_b, s_b, l_b = check_step(step, u0, (D,),
                                          f"{label} best_bind", floor_ok=True)
             # the same step through the colour design, in turns (lane
-            # above, colour, colour, lane): does the kernel's gain reach
-            # the step?
+            # above, colour, lane): does the kernel's gain reach the step?
             op = step.op
             colour = lambda v, Dc: ksum.sumfact_apply_colour(
                 v, Dc, op.tab, op._mats, periodic)
             step_s = {"lane": [s_b], "colour": []}
-            for name in ("colour", "colour", "lane"):
+            for name in ("colour", "lane"):
                 _, s, _ = check_step(step, u0, (D,), f"{label} {name}",
                                      fn=colour if name == "colour" else None,
                                      floor_ok=True)
                 step_s[name].append(s)
-            log(f"{label}: step s in turns (lane, colour, colour, lane): "
+            log(f"{label}: step s in turns (lane, colour, lane): "
                 f"{step_s}")
             fz, Dz = op.bind_zchain(use_periodic=periodic)
             res_z, _, l_z = check_step(step, u0, (Dz,), f"{label} zchain",
@@ -854,6 +1095,12 @@ def main():
             del step, op, colour, u0, D, res_b
             torch.cuda.empty_cache()
 
+    # -- 9. slice 6: the application drivers ---------------------------------
+    t9 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        drivers = run_drivers(dev, tmp, rel_l2_limit=JAX_9A_REL_L2)
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
@@ -867,10 +1114,12 @@ def main():
     log("phase 8b: sweep median apply ms " + json.dumps(
         {f"p{o} {n}": v for (o, n), v in sweep.items()}))
     b4_2 = b4[2, False]
+    log(json.dumps({"drivers": drivers}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,
-               by_order=by_order["B1"], pa_steps=pa_steps),
+               by_order=by_order["B1"], pa_steps=pa_steps,
+               pa_apply_alone=pa_alone),
         record("sumfact_fused", "sumfact_fused.cu",
                "cmfem_tpu/ops/sumfact.py:563", b2_launches, b2_abs, b2_k,
                b2_p, b2_bound, call_ms=b2_call,

@@ -3,15 +3,22 @@
 The JAX package ``cmfem_tpu`` stays the reference; this package mirrors its
 layout and names and never imports jax:
 
-  core/      mesh, reference elements, quadrature, H1 space (numpy copies),
-             geometric factors
-  ops/       assembly into quadrature-point data, essential BCs, structured
-             lattice numbering, the sum-factorized structured operator
+  core/      mesh, reference elements, quadrature, H1 space, point location
+             (numpy copies), geometric and face factors
+  ops/       assembly into quadrature-point data, linear forms, error norms,
+             essential BCs, the element-batched and the sum-factorized
+             structured operators
   kernels/   hand-written CUDA kernels: build, ctypes binding, wrappers
   csrc/      the kernels' CUDA C++ sources (built for sm_90a at first use)
-  solvers/   CG, GMRES, Jacobi and Chebyshev preconditioners
+  solvers/   CG, GMRES, Jacobi and Chebyshev preconditioners, structured and
+             geometric multigrid, dense LU, DIRK time stepping, Newton
+  io/ utils/ CSV and VTU output, YAML configuration, step timing
+  native     ctypes loader of native/libcmfem_native.so (gmsh parser,
+             bucket-grid point locator)
+  apps/      the application drivers: run(cfg, device=None) and main(argv)
   interop    numpy arrays from the JAX package -> the port's objects
-  entry      the slice's main path: one implicit BE step of 3D CDR
+  entry      the structured main paths: implicit BE steps of 3D CDR, the
+             MG solve, the operator-apply sweep
 """
 
 import torch

@@ -1,8 +1,16 @@
 from .reference_elements import ReferenceElement, get_reference_element
 from .quadrature import QuadratureRule, gauss_rule
-from .mesh import Mesh, load_gmsh, make_cartesian_mesh_2d, make_cartesian_mesh_3d
+from .mesh import (
+    Mesh, load_gmsh, write_gmsh, make_cartesian_mesh_2d, make_cartesian_mesh_3d,
+)
 from .fespace import FESpace
-from .geometry import GeometricFactors, compute_geometric_factors
+from .geometry import (
+    GeometricFactors,
+    FaceFactors,
+    compute_geometric_factors,
+    compute_face_factors,
+    factors_for,
+)
 
 __all__ = [
     "ReferenceElement",
@@ -11,9 +19,13 @@ __all__ = [
     "gauss_rule",
     "Mesh",
     "load_gmsh",
+    "write_gmsh",
     "make_cartesian_mesh_2d",
     "make_cartesian_mesh_3d",
     "FESpace",
     "GeometricFactors",
     "compute_geometric_factors",
+    "FaceFactors",
+    "compute_face_factors",
+    "factors_for",
 ]

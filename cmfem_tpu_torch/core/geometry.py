@@ -1,8 +1,11 @@
 """Geometric factors: per-element, per-QP Jacobians J, detJ, J^{-1}.
 
 Port of ``cmfem_tpu/core/geometry.py``: ``compute_geometric_factors`` runs
-on torch tensors (any device), ``compute_geometric_factors_host`` is the
-numpy copy used at setup.  Face factors wait for a later slice.
+on torch tensors (any device, differentiable in the coordinates),
+``compute_geometric_factors_host`` is the numpy copy (host arrays),
+``factors_for`` the convenience wrapper for a mesh and a rule, and
+``compute_face_factors`` the surface measure and outward normal of the
+boundary faces.
 """
 
 from __future__ import annotations
@@ -11,6 +14,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .mesh import Mesh
+from .quadrature import QuadratureRule
+from .reference_elements import get_reference_element
 
 
 @dataclass
@@ -100,3 +107,68 @@ def compute_geometric_factors_host(coords_e, Bgeo, Ggeo, weights):
     det, inv = _inv_det(J, xp=np)
     xq = np.einsum("qn,end->eqd", Bgeo, coords_e)
     return GeometricFactors(det, inv, weights[None, :] * det, xq)
+
+
+def factors_for(mesh: Mesh, quad: QuadratureRule, coords=None,
+                geom_order: int = 1, *, device="cpu",
+                dtype=torch.float64) -> GeometricFactors:
+    """Convenience: geometric factors of a mesh at a quadrature rule, as
+    tensors on ``device`` in ``dtype``.
+
+    coords: optional (nv, dim) vertex coordinates overriding mesh.vertices
+    (for moving meshes with order-1 geometry; a tensor keeps its device,
+    dtype and graph).  Only geom_order=1 is supported: curved geometry needs
+    a nodal coordinate field over an H1 space, not just corner connectivity;
+    moving meshes are handled by passing updated vertex ``coords``."""
+    if geom_order != 1:
+        raise NotImplementedError(
+            "factors_for supports geom_order=1 only; curved geometry "
+            "would need (ne, ndof_geom) nodal coordinates, but coords "
+            "are gathered from corner connectivity")
+    ref = get_reference_element(mesh.geom, geom_order)
+    B, G = ref.eval(quad.points)
+    verts = mesh.vertices if coords is None else coords
+    if not torch.is_tensor(verts):
+        verts = torch.as_tensor(np.asarray(verts), dtype=dtype, device=device)
+    conn = torch.as_tensor(np.asarray(mesh.elem_conn, dtype=np.int64),
+                           device=verts.device)
+    return compute_geometric_factors(verts[conn], B, G, quad.weights)
+
+
+# -- boundary-face factors --------------------------------------------------
+
+@dataclass
+class FaceFactors:
+    """wdS (nbf, nq): surface measure x weight; normal (nbf, nq, dim) unit
+    outward normal; xq (nbf, nq, dim) physical QP positions."""
+
+    wdS: torch.Tensor
+    normal: torch.Tensor
+    xq: torch.Tensor
+
+
+def compute_face_factors(face_coords, Bf, Gf, weights, normal_sign) -> FaceFactors:
+    """Surface factors for boundary faces (torch).
+
+    face_coords : (nbf, ngf, dim) face geometry-node coordinates
+    Bf : (nq, ngf); Gf : (nq, ngf, dim-1); weights : (nq,)
+    normal_sign : (nbf,) +-1 flipping the param normal to point outward.
+    All are moved to ``face_coords``'s device and dtype.
+    """
+    face_coords = torch.as_tensor(face_coords)
+    cv = lambda a: torch.as_tensor(a).to(device=face_coords.device,
+                                         dtype=face_coords.dtype)
+    Bf, Gf, weights, normal_sign = cv(Bf), cv(Gf), cv(weights), cv(normal_sign)
+    T = torch.einsum("end,qnr->eqdr", face_coords, Gf)  # tangent vectors
+    dim = face_coords.shape[-1]
+    if dim == 2:
+        t = T[..., 0]  # (nbf, nq, 2)
+        mag = torch.linalg.vector_norm(t, dim=-1)
+        nrm = torch.stack([t[..., 1], -t[..., 0]], dim=-1) / mag[..., None]
+    else:
+        c = torch.linalg.cross(T[..., 0], T[..., 1], dim=-1)
+        mag = torch.linalg.vector_norm(c, dim=-1)
+        nrm = c / mag[..., None]
+    nrm = nrm * normal_sign[:, None, None]
+    xq = torch.einsum("qn,end->eqd", Bf, face_coords)
+    return FaceFactors(weights[None, :] * mag, nrm, xq)

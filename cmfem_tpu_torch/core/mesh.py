@@ -3,8 +3,9 @@
 Numpy copy of ``cmfem_tpu/core/mesh.py`` (MFEM's ``Mesh`` layer: the Gmsh
 reader and uniform refinement).  Data lives in plain numpy arrays;
 device-side consumers (assembly, geometry) receive them as torch tensors.
-The copy keeps only the pure-Python gmsh reader: the JAX package's optional
-native parser is not carried over.
+``write_gmsh`` is the port's own (2D meshes, the inverse of ``load_gmsh``).
+``load_gmsh`` takes the native C++ parser of ``native/`` when the library
+loads (``cmfem_tpu_torch.native``), the pure-Python reader otherwise.
 """
 
 from __future__ import annotations
@@ -87,9 +88,32 @@ class Mesh:
         return replace(self, vertices=np.asarray(vertices, dtype=np.float64))
 
 
-def load_gmsh(path_or_str, keep_z: bool = False) -> Mesh:
+def load_gmsh(path_or_str, keep_z: bool = False,
+              use_native: bool = True) -> Mesh:
     """Read a GMSH v2.2 ASCII mesh (the format of all reference assets),
-    from a path or from the file's text."""
+    from a path or from the file's text.
+
+    Uses the native C++ parser (native/cmfem_native.cpp) when built,
+    falling back to the pure-Python reader."""
+    if use_native and isinstance(path_or_str, str) \
+            and "$MeshFormat" not in path_or_str:
+        try:
+            from ..native import gmsh_parse_native
+
+            out = gmsh_parse_native(path_or_str)
+        except Exception:
+            out = None
+        if out is not None:
+            dim, xyz, elem_conn, elem_attr, bdr_conn, bdr_attr = out
+            ncorner = elem_conn.shape[1]
+            geom = {(1, 2): SEGMENT, (2, 3): TRIANGLE, (2, 4): QUAD,
+                    (3, 4): TETRAHEDRON, (3, 8): HEXAHEDRON}[(dim, ncorner)]
+            bg = {1: None, 2: SEGMENT, 3: TRIANGLE if bdr_conn.shape[1] == 3
+                  else QUAD}[dim] if len(bdr_attr) else None
+            verts = xyz[:, :dim] if not keep_z else xyz
+            return _finalize_mesh(dim, geom, verts, elem_conn, elem_attr,
+                                  bg, bdr_conn, bdr_attr)
+
     if isinstance(path_or_str, str) and "$MeshFormat" in path_or_str:
         f = io.StringIO(path_or_str)
     else:
@@ -202,6 +226,33 @@ def _finalize_mesh(dim, geom, verts, elem_conn, elem_attr, bg, bdr_conn,
 # ---------------------------------------------------------------------------
 # Structured mesh generators (for tests, 3D benchmarks, and smoke problems)
 # ---------------------------------------------------------------------------
+
+def write_gmsh(mesh, path):
+    """Write a 2D ``Mesh`` (triangles or quads with boundary segments) as
+    GMSH v2.2 ASCII text, the format ``load_gmsh`` reads and the drivers'
+    ``mesh_file`` names; returns ``path``.  (The JAX package has no writer:
+    its drivers' meshes come from files.  The port's smoke run, profiler and
+    tests make theirs from ``make_cartesian_mesh_2d``.)"""
+    etype = {3: 2, 4: 3}[mesh.elem_conn.shape[1]]
+    lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes",
+             str(len(mesh.vertices))]
+    lines += [f"{i + 1} {float(x)!r} {float(y)!r} 0"
+              for i, (x, y) in enumerate(mesh.vertices)]
+    lines += ["$EndNodes", "$Elements",
+              str(len(mesh.bdr_conn) + len(mesh.elem_conn))]
+    k = 1
+    for conn, a in zip(mesh.bdr_conn, mesh.bdr_attr):
+        lines.append(f"{k} 1 2 {a} {a} " + " ".join(str(v + 1) for v in conn))
+        k += 1
+    for conn, a in zip(mesh.elem_conn, mesh.elem_attr):
+        lines.append(f"{k} {etype} 2 {a} {a} "
+                     + " ".join(str(v + 1) for v in conn))
+        k += 1
+    lines.append("$EndElements")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
 
 def make_cartesian_mesh_2d(nx: int, ny: int, sx=1.0, sy=1.0, x0=0.0, y0=0.0,
                            geom: str = QUAD) -> Mesh:

@@ -107,6 +107,11 @@ def _device(device):
     return require_cuda() if device is None else torch.device(device)
 
 
+def _btdb_path(op):
+    """The step's name for an element-batched operator's path."""
+    return "plain-btdb" if op.path == "plain" else op.path
+
+
 def _step(form_fn, n, order, device, dtype, solver, operator="sumfact"):
     if operator not in OPERATORS:
         raise ValueError(f"operator must be one of {OPERATORS}, "
@@ -119,14 +124,13 @@ def _step(form_fn, n, order, device, dtype, solver, operator="sumfact"):
     ldata = lhs.assemble()
     diag = lhs.assemble_diagonal(ldata)
     grid = StructuredGrid3D(n, n, n, order)
-    kernel = "cuda" if device.type == "cuda" else "plain"
     # the unit spike of u0 sits at the middle lattice DOF in every numbering
     spike = grid.ndofs // 2
     lat = None
     if operator == "pa":
         op = PAOperator(ops, ldata, dtype=dtype)
         fn, *arrays = op.bind()
-        path = f"{kernel}-btdb"
+        path = _btdb_path(op)
         mask = EssentialBC(fes.nscalar, fes.boundary_dofs(),
                            device=device).mask
         diag = diag.to(dtype)
@@ -140,7 +144,7 @@ def _step(form_fn, n, order, device, dtype, solver, operator="sumfact"):
         else:
             op = StructuredPAOperator(ops, ldata, grid, dtype=dtype)
             fn, D = op.bind()
-            path = f"{kernel}-btdb"
+            path = _btdb_path(op)
         arrays = [D]
         mask = torch.as_tensor(grid.boundary_mask(), device=device)
         diag = lattice_diagonal(diag, fes, grid, device=device, dtype=dtype)

@@ -8,7 +8,11 @@ tensors here, so both packages can be made to compute the same thing:
 - ``SumFactoredOperator.from_arrays`` (in ``ops.sumfact``): an operator from
   D and Dz in the lattice layout, the axis matrices and the flags;
 - ``pa_operator_from_arrays``: a PAOperator or StructuredPAOperator from
-  ``pack_qp_blocks_T``'s (Dflat, BG).
+  ``pack_qp_blocks_T``'s (Dflat, BG);
+- ``geometric_mg_from_arrays``: a GeometricMG whose levels carry the other
+  package's data, diagonal, mask, transfer stencils and ``lmax`` (the two
+  packages' power iterations start from different random vectors, so only
+  carried-over ``lmax`` makes their V-cycles comparable).
 
 ``lattice_index`` is the entity -> lattice DOF permutation of a
 ``make_cartesian_mesh_3d`` space, taken from the topology (element
@@ -93,3 +97,35 @@ def pa_operator_from_arrays(Dflat, BG, eldofs=None,
                                       device=device, dtype=dtype)
     raise ValueError("pass eldofs and nscalar (PAOperator) or grid alone "
                      "(StructuredPAOperator)")
+
+
+def geometric_mg_from_arrays(specs, make_form, levels, *, quad_order=None,
+                             device, dtype=torch.float64):
+    """A ``GeometricMG`` over ``specs`` ((mesh, order) fine -> coarse) whose
+    level state is given as arrays: ``levels[k]`` is a dict with ``data``
+    (the (d00, d01, d10, d11) blocks, any of them None), ``diag``, ``mask``,
+    ``lmax`` and, for every level but the coarsest, ``Pd`` and ``Pw``.
+    ``make_form(ops)`` builds each level's form (its tabulations apply the
+    data); nothing is assembled, located or estimated here."""
+    from .ops.assembly import SpaceOps
+    from .solvers.multigrid import GeometricMG
+
+    out = []
+    for (mesh_l, order_l), a in zip(specs, levels, strict=True):
+        fes = FESpace(mesh_l, order_l)
+        ops = SpaceOps(fes, quad_order=quad_order or max(2, 2 * order_l),
+                       device=device, dtype=dtype)
+        lvl = {
+            "form": make_form(ops),
+            "data": operator_data_from_numpy(*a["data"], device=device,
+                                             dtype=dtype),
+            "n": fes.nscalar,
+            "diag": _tensor(a["diag"], device, dtype),
+            "mask": _tensor(a["mask"], device, torch.bool),
+            "lmax": float(a["lmax"]),
+        }
+        if a.get("Pd") is not None:
+            lvl["Pd"] = _tensor(a["Pd"], device, torch.int64)
+            lvl["Pw"] = _tensor(a["Pw"], device, dtype)
+        out.append(lvl)
+    return GeometricMG(out)

@@ -49,3 +49,9 @@ class EssentialBC:
 
     def zero_essential(self, x):
         return torch.where(self.free, x, 0.0)
+
+    def constrain_dense(self, A, diag=1.0):
+        """Row/col elimination on a dense matrix (direct-solve path)."""
+        freef = self.free.to(A.dtype)
+        A = A * freef[:, None] * freef[None, :]
+        return A + torch.diag(torch.where(self.mask, diag, 0.0).to(A.dtype))

@@ -4,9 +4,11 @@ Port of ``cmfem_tpu/ops/partial.py``: ``pack_qp_blocks_T``,
 ``StructuredGrid3D``, and the two element-batched operators that apply
 B^T D B per element, ``PAOperator`` (any mesh: ``u[eldofs]`` gather and
 ``index_add_`` scatter) and ``StructuredPAOperator`` (lattice gather and
-scatter of ``StructuredGrid3D``).  Their element stage is
-``kernels.btdb.btdb_apply``: the hand-written CUDA kernel that replaces the
-TPU's ``_pallas_btdb`` on a CUDA tensor, its plain version on a CPU tensor.
+scatter of ``StructuredGrid3D``).  Their element stage is decided at
+construction, by shape (``element_path``): ``kernels.btdb.btdb_apply``, the
+hand-written CUDA kernel that replaces the TPU's ``_pallas_btdb``, where the
+kernel is instantiated for the element and the tensors are CUDA f32/f64;
+``btdb_plain`` (a port of ``_xla_btdb``, which takes any mesh) otherwise.
 The gather and scatter stay torch ops, as the JAX package keeps them
 outside its Pallas kernel.
 """
@@ -18,7 +20,7 @@ import torch
 
 from .assembly import SpaceOps, OperatorData
 from ..core.reference_elements import get_reference_element, HEXAHEDRON
-from ..kernels.btdb import btdb_apply, btdb_plain, pack_bg
+from ..kernels.btdb import KERNEL_SHAPES, btdb_apply, btdb_plain, pack_bg
 
 
 def _tensor(a, device, dtype):
@@ -29,11 +31,37 @@ def _tensor(a, device, dtype):
     return a.to(device=device, dtype=dtype)
 
 
+def element_path(m: int, nd: int, nq: int, device, dtype,
+                 use_kernel: bool = True) -> str:
+    """The element stage of an operator with ``nd`` DOFs and ``nq`` points
+    per element in ``m - 1`` dimensions: ``"cuda-btdb"`` (the B1 kernel)
+    where the kernel is instantiated for (m, nd, nq), the device is CUDA and
+    the dtype f32 or f64, and the caller did not ask for the plain version;
+    ``"plain"`` (``btdb_plain``, any element) otherwise.  A choice of path
+    made once by shape: a kernel that fails to build or launch still raises,
+    and ``btdb_apply`` itself raises on a CUDA shape outside KERNEL_SHAPES."""
+    if (use_kernel and torch.device(device).type == "cuda"
+            and dtype in (torch.float32, torch.float64)
+            and (m, nd, nq) in KERNEL_SHAPES):
+        return "cuda-btdb"
+    return "plain"
+
+
+def _init_element_stage(op, use_kernel):
+    """Set ``op.path`` and, on the kernel path only, ``op.BG_stream`` (the
+    kernel's layout of BG, once and not per apply)."""
+    nd = op.BG.shape[1]
+    op.path = element_path(op.m, nd, op.nq, op.device, op.dtype, use_kernel)
+    op.BG_stream = pack_bg(op.BG, op.m, op.nq) \
+        if op.path == "cuda-btdb" else None
+
+
 def _element_stage(op):
-    """fn(u_eT, Dflat) -> y_eT of an operator: the B1 kernel wrapper with the
-    operator's BG and its packed stream, or the plain version."""
+    """fn(u_eT, Dflat) -> y_eT of an operator by its ``path``: the B1 kernel
+    wrapper with the operator's BG and its packed stream, or the plain
+    version."""
     BG, packed = op.BG, op.BG_stream
-    if op.use_kernel:
+    if op.path == "cuda-btdb":
         return lambda u_eT, Dflat: btdb_apply(BG, u_eT, Dflat, packed)
     return lambda u_eT, Dflat: btdb_plain(BG, u_eT, Dflat)
 
@@ -74,9 +102,10 @@ class PAOperator:
     """Matrix-free operator for an arbitrary (unstructured) mesh.
 
     Gather/scatter via ``u[eldofs]`` / ``index_add_``; the element stage is
-    the B1 kernel (``use_kernel=True``: the CUDA kernel on a CUDA tensor,
-    its plain version on a CPU tensor) or always the plain version
-    (``use_kernel=False``).  Acts on entity-numbered vectors."""
+    named by ``path``: ``"cuda-btdb"`` (the B1 kernel: CUDA tensors, hexes
+    and quads at orders 1-4 with p + 1 points per axis) or ``"plain"``
+    (every other element, CPU tensors, or ``use_kernel=False``).  Acts on
+    entity-numbered vectors."""
 
     def __init__(self, ops: SpaceOps, data: OperatorData, *,
                  dtype=torch.float32, use_kernel: bool = True):
@@ -103,14 +132,11 @@ class PAOperator:
         self.nscalar = int(nscalar)
         self.Dflat = Dflat.contiguous()
         self.BG = BG.contiguous()
-        # the kernel's layout of BG, once and not per apply
-        self.BG_stream = pack_bg(self.BG, self.m, self.nq) \
-            if use_kernel and self.device.type == "cuda" else None
+        _init_element_stage(self, use_kernel)
         # element DOFs in the transposed layout (nd, ne), so that u[eldofs_T]
         # is u_eT and index_add_ reads it flat, with no copy per apply
         self.eldofs_T = eldofs.to(device=self.device,
                                   dtype=torch.int64).T.contiguous()
-        self.use_kernel = use_kernel
 
     def bind(self):
         """(fn(u, Dflat, eldofs_T) -> y, Dflat, eldofs_T): the apply, with
@@ -198,7 +224,7 @@ class StructuredPAOperator:
 
     Built from a SpaceOps on a ``make_cartesian_mesh_3d`` mesh; the
     operator acts on lattice-numbered DOF vectors (use ``grid`` helpers for
-    BCs / interpolation).  ``use_kernel`` as for PAOperator."""
+    BCs / interpolation).  ``path`` and ``use_kernel`` as for PAOperator."""
 
     def __init__(self, ops: SpaceOps, data: OperatorData,
                  grid: StructuredGrid3D, *, dtype=torch.float32,
@@ -222,12 +248,10 @@ class StructuredPAOperator:
         self.grid = grid
         self.dtype, self.device = Dflat.dtype, Dflat.device
         self.m = int(round(Dflat.shape[0] ** 0.5))
+        self.nq = Dflat.shape[1]
         self.Dflat = Dflat.contiguous()
         self.BG = BG.contiguous()
-        # the kernel's layout of BG, once and not per apply
-        self.BG_stream = pack_bg(self.BG, self.m, Dflat.shape[1]) \
-            if use_kernel and self.device.type == "cuda" else None
-        self.use_kernel = use_kernel
+        _init_element_stage(self, use_kernel)
 
     def bind(self):
         """(fn(u, Dflat) -> y, Dflat); see PAOperator.bind."""

@@ -1,6 +1,7 @@
-"""Where the time of slices 2 and 3's paths goes, on one GPU.
+"""Where the time of slices 2, 3 and 6's paths goes, on one GPU.
 
     python -m cmfem_tpu_torch.profiling [--n 48] [--out FILE]
+                                        [--sections operators,vcycle,...]
 
 Profiles, with ``torch.profiler`` (host and device activity), at n^3
 order-2 elements:
@@ -14,7 +15,12 @@ order-2 elements:
   level's operator apply alone (host clock, device synchronized);
 - one ``sumfact-zchain`` and one ``sumfact-zchain-periodic`` apply of
   ``operator_paths``, float32: how the device time splits between the
-  z-chain kernel and the torch x/y matmuls around it.
+  z-chain kernel and the torch x/y matmuls around it;
+- the steps of the ``linear_cd_transient`` driver (section ``driver``) on
+  64 x 64 quads refined twice, order 2, float64, dt = 1e-3: the driver is
+  run whole for 1 step and for 4 steps, each under the profiler (device
+  activity only), and the difference is three steps' wall and device busy
+  time with the set-up taken out; the same with ``scan_stepping``.
 
 For each it prints the host wall per repetition (profiled, and unprofiled
 where stated), the device busy time (the sum of the device activities'
@@ -25,8 +31,10 @@ and the device activities that take most time.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -35,6 +43,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import require_cuda
+from .apps import linear_cd_transient
+from .core import make_cartesian_mesh_2d, write_gmsh
 from .entry import KAPPA, OPERATORS, operator_paths, vc_entry
 from .ops import BilinearForm
 from .solvers.multigrid import StructuredMG
@@ -134,9 +144,60 @@ def profile_zchain(n, dev, rng, out):
         profiled(f"{name} apply", lambda: fn(u, *arrays), 20, out)
 
 
+def device_busy(fn):
+    """(wall ms, device busy ms, value) of one call of ``fn()`` under the
+    profiler, device activity only (the host side of a whole driver run is
+    seconds of numpy)."""
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        value = fn()
+        _sync()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return wall, busy, value
+
+
+def profile_driver(n, dev, rng, out, n_quads=64, ref=2):
+    """The steps of the linear_cd_transient driver, set-up differenced out."""
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = write_gmsh(make_cartesian_mesh_2d(n_quads, n_quads),
+                          os.path.join(tmp, "quads.msh"))
+        cfg = {"mesh_file": mesh, "serial_ref_levels": ref, "order": 2,
+               "dt": 1e-3, "save_paraview": False,
+               "output_path": os.path.join(tmp, "out")}
+        run = lambda steps, scan: linear_cd_transient.run(
+            {**cfg, "t_final": steps * 1e-3, "scan_stepping": scan},
+            device=dev)
+        run(1, False)  # warm: handles, allocator
+        for scan in (False, True):
+            w1, b1, _ = device_busy(lambda: run(1, scan))
+            w4, b4, r = device_busy(lambda: run(4, scan))
+            wall, busy = (w4 - w1) / 3, (b4 - b1) / 3
+            steps = r["timing"][1:]
+            out(f"== linear_cd_transient {'scan_stepping' if scan else 'host loop'}"
+                f" ({r['fes'].nscalar} DOFs x 3 Peclet cases, f64): steps "
+                f"2-4 wall {wall:.1f} ms/step, device busy {busy:.1f} "
+                f"ms/step, idle share {1 - busy / wall:.3f}; whole runs "
+                f"{w1:.0f} ms (1 step) and {w4:.0f} ms (4 steps); the "
+                f"driver's own clock: solve "
+                f"{1e3 * statistics.mean(t['solve'] for t in steps):.1f} "
+                f"ms/step, errors and output "
+                f"{1e3 * statistics.mean(t['errors_io'] for t in steps):.1f}"
+                f" ms/step; Arnoldi steps per step "
+                f"{sum(r['arnoldi']) / 4:.0f}")
+
+
+SECTIONS = {"operators": profile_operators, "vcycle": profile_vcycle,
+            "zchain": profile_zchain, "driver": profile_driver}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=48)
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help="comma-separated, of: " + ", ".join(SECTIONS))
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args(argv)
     dev = require_cuda()
@@ -153,9 +214,8 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     out(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     rng = np.random.default_rng(0)
-    profile_operators(args.n, dev, rng, out)
-    profile_vcycle(args.n, dev, rng, out)
-    profile_zchain(args.n, dev, rng, out)
+    for name in args.sections.split(","):
+        SECTIONS[name](args.n, dev, rng, out)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -1,6 +1,7 @@
-"""Geometric multigrid for the structured sum-factorized operators.
+"""Geometric multigrid: ``StructuredMG`` for the structured sum-factorized
+operators and ``GeometricMG`` for unstructured meshes.
 
-Port of ``StructuredMG`` from ``cmfem_tpu/solvers/multigrid.py``: on a
+Port of ``cmfem_tpu/solvers/multigrid.py``.  ``StructuredMG``: on a
 tensor-product lattice every multigrid ingredient is a 1D-matrix axis
 contraction —
 
@@ -15,8 +16,12 @@ contraction —
 
 The level policy is JAX's: the fine level binds through ``best_bind`` (the
 CUDA sum-factorization kernel on a GPU), the coarse levels the plain chain
-(``bind()``).  ``GeometricMG`` (unstructured meshes) needs point location
-and comes in a later slice.
+(``bind()``).
+
+``GeometricMG``: p-coarsening then the driver's own refinement chain, every
+level applied through ``BilinearForm.apply``, transfers from point location
+(``core.pointlocate.h1_sampling_stencil``): restriction an ``index_add_`` of
+the weighted stencil, prolongation a gather and a row sum.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core import FESpace, make_cartesian_mesh_3d
+from ..core.pointlocate import h1_sampling_stencil
 from ..core.reference_elements import gauss_lobatto_nodes
 from ..interop import lattice_diagonal
 from ..ops.assembly import SpaceOps
@@ -63,6 +69,158 @@ def _lattice_diag(fes: FESpace, form, data, grid: StructuredGrid3D, *,
     coordinates at all and raises when the space is not the lattice."""
     return lattice_diagonal(form.assemble_diagonal(data), fes, grid,
                             device=device, dtype=dtype)
+
+
+class GeometricMG:
+    """Geometric interpolation multigrid for UNSTRUCTURED meshes: the
+    production-PC analog of the reference's PETSc AMG option files for
+    the 2D drivers.  The hierarchy is p-coarsening (order -> 1 on the solve
+    mesh) followed by the driver's own refinement chain (refined mesh ->
+    loaded mesh); transfer operators are exact H1 interpolation stencils of
+    each coarse space at the next finer space's node positions
+    (``h1_sampling_stencil``), so nested refinement gives the standard
+    P / P^T pair without any parent bookkeeping.  Smoothing is
+    Jacobi-scaled Chebyshev (matmul-only).
+
+    Levels are dicts fine -> coarse: ``form`` (the level's BilinearForm),
+    ``data`` (its OperatorData), ``n``, ``diag`` (1.0 at essential dofs),
+    ``mask``, ``lmax`` and, for every level but the coarsest, ``Pd``
+    (nf, nd) int64 and ``Pw`` (nf, nd): the coarse DOFs and weights that
+    interpolate to each fine DOF.
+    """
+
+    def __init__(self, levels, smooth_degree: int = 3,
+                 coarse_degree: int = 24):
+        self.levels = levels
+        self.smooth_degree = smooth_degree
+        self.coarse_degree = coarse_degree
+
+    @staticmethod
+    def build(specs, make_form, quad_order=None, ess_dofs=None, *, device,
+              dtype=torch.float64,
+              generator: torch.Generator | None = None):
+        """specs: list of (mesh, order) fine -> coarse (nested domains:
+        every finer level's nodes must lie inside the coarser mesh).
+        ``make_form(ops) -> BilinearForm`` defines the SPD PDE on every
+        level (``ops`` lives on ``device`` in ``dtype``).
+        ``ess_dofs(fes) -> index array`` selects each level's essential
+        dofs (default: the full boundary).  The PC's pinned set must match
+        the SYSTEM's essential dofs: a PC that pins dofs the system leaves
+        free (e.g. full boundary vs x-only Dirichlet in the 3-Peclet
+        driver) acts as identity there and can stall GMRES into a silently
+        wrong iterate.  ``generator`` draws the power iterations' start
+        vectors (default: seeded with 0)."""
+        device = torch.device(device)
+        levels = []
+        prev_fes = None
+        for (mesh_l, order_l) in specs:
+            fes = FESpace(mesh_l, order_l)
+            ops = SpaceOps(fes, quad_order=quad_order or max(2, 2 * order_l),
+                           device=device, dtype=dtype)
+            form = make_form(ops)
+            data = form.assemble()
+            mask = np.zeros(fes.nscalar, bool)
+            ess_l = (fes.boundary_dofs() if ess_dofs is None
+                     else ess_dofs(fes))
+            mask[np.asarray(ess_l)] = True
+            mask = torch.as_tensor(mask, device=device)
+            lvl = {
+                "form": form,
+                "data": data,
+                "n": fes.nscalar,
+                "diag": torch.where(mask, 1.0, form.assemble_diagonal(data)),
+                "mask": mask,
+            }
+            if prev_fes is not None:
+                # interpolation of THIS (coarse) space at the previous
+                # (fine) level's nodes: u_f = P u_c
+                pd, pw = h1_sampling_stencil(
+                    fes, np.asarray(prev_fes.node_positions))
+                if not np.isfinite(pw).all():
+                    raise ValueError(
+                        "GeometricMG: fine nodes fall outside the coarse "
+                        "mesh (non-nested hierarchy)")
+                levels[-1]["Pd"] = torch.as_tensor(pd, device=device)
+                levels[-1]["Pw"] = torch.as_tensor(pw, dtype=dtype,
+                                                   device=device)
+            levels.append(lvl)
+            prev_fes = fes
+
+        # Chebyshev eigenvalue estimates of the Jacobi-scaled constrained
+        # operators
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for lvl in levels:
+            form, data = lvl["form"], lvl["data"]
+            mask = lvl["mask"]
+            dinv = 1.0 / lvl["diag"]
+
+            def Aop(v, form=form, data=data, mask=mask, dinv=dinv):
+                av = form.apply(data, torch.where(mask, 0.0, v))
+                return dinv * torch.where(mask, v, av)
+
+            lvl["lmax"] = float(power_iteration_lmax(
+                Aop, lvl["n"], iters=20, generator=generator, device=device,
+                dtype=dtype)) * 1.05
+        return GeometricMG(levels)
+
+    def bind(self):
+        """(M(r, arrays), arrays): the V-cycle preconditioner, with every
+        level's (data, diag, mask, Pd, Pw) passed as arguments."""
+        nlev = len(self.levels)
+        forms = [lvl["form"] for lvl in self.levels]
+        meta = [{"lmax": lvl["lmax"], "n": lvl["n"]} for lvl in self.levels]
+        arrays = []
+        for lvl in self.levels:
+            dev, dtype = lvl["diag"].device, lvl["diag"].dtype
+            arrays.append((lvl["data"], lvl["diag"], lvl["mask"],
+                           lvl.get("Pd", torch.zeros((0, 1), dtype=torch.int64,
+                                                     device=dev)),
+                           lvl.get("Pw", torch.zeros((0, 1), dtype=dtype,
+                                                     device=dev))))
+        smooth_degree = self.smooth_degree
+        coarse_degree = self.coarse_degree
+
+        def apply_level(k, v, arrs):
+            data, _, mask, _, _ = arrs[k]
+            av = forms[k].apply(data, torch.where(mask, 0.0, v))
+            return torch.where(mask, v, av)
+
+        def chebyshev(k, r, arrs, degree):
+            dinv = 1.0 / arrs[k][1]
+
+            def Aop(v):
+                return dinv * apply_level(k, v, arrs)
+
+            return chebyshev_smooth(Aop, dinv * r, meta[k]["lmax"], degree)
+
+        def restrict(k, r, arrs):
+            """fine k -> coarse k+1 via P^T (scatter of the stencil)."""
+            _, _, _, Pd, Pw = arrs[k]
+            rc = torch.zeros(meta[k + 1]["n"], dtype=r.dtype, device=r.device)
+            rc.index_add_(0, Pd.reshape(-1), (Pw * r[:, None]).reshape(-1))
+            return torch.where(arrs[k + 1][2], 0.0, rc)
+
+        def prolong(k, e, arrs):
+            _, _, _, Pd, Pw = arrs[k]
+            ef = (Pw * e[Pd]).sum(1)
+            return torch.where(arrs[k][2], 0.0, ef)
+
+        def vcycle(k, r, arrs):
+            if k == nlev - 1:
+                return chebyshev(k, r, arrs, coarse_degree)
+            z = chebyshev(k, r, arrs, smooth_degree)
+            res = r - apply_level(k, z, arrs)
+            ec = vcycle(k + 1, restrict(k, res, arrs), arrs)
+            z = z + prolong(k, ec, arrs)
+            res = r - apply_level(k, z, arrs)
+            z = z + chebyshev(k, res, arrs, smooth_degree)
+            return z
+
+        def M(r, arrs):
+            return vcycle(0, r, arrs)
+
+        return M, tuple(arrays)
 
 
 class StructuredMG:

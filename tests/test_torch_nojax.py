@@ -34,7 +34,18 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.solvers.krylov", "cmfem_tpu_torch.kernels.btdb",
             "cmfem_tpu_torch.ops.partial",
             "cmfem_tpu_torch.solvers.multigrid",
-            "cmfem_tpu_torch.kernels.zchain"} <= set(mods)
+            "cmfem_tpu_torch.kernels.zchain",
+            "cmfem_tpu_torch.core.pointlocate", "cmfem_tpu_torch.native",
+            "cmfem_tpu_torch.solvers.direct",
+            "cmfem_tpu_torch.solvers.timeint",
+            "cmfem_tpu_torch.solvers.newton",
+            "cmfem_tpu_torch.utils.yamlcfg", "cmfem_tpu_torch.utils.timing",
+            "cmfem_tpu_torch.io.csvio", "cmfem_tpu_torch.io.vtu",
+            "cmfem_tpu_torch.apps.common",
+            "cmfem_tpu_torch.apps.diffusion_mms",
+            "cmfem_tpu_torch.apps.linear_cd_2d",
+            "cmfem_tpu_torch.apps.linear_cd_2d_circle",
+            "cmfem_tpu_torch.apps.linear_cd_transient"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
