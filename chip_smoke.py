@@ -30,8 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``path == "cuda-btdb"``.  Elements the kernel has no instantiation for
      (triangles at orders 1-3, hexes at orders 2 and 4 under a rule with
      p + 2 points per axis; the spaces of both packages stop at order 4)
-     take ``path == "plain"``, leave the kernel's launch count alone and
-     agree with ``BilinearForm.apply`` to the same tolerances;
+     are refused at construction in ``btdb_apply``'s words; built with
+     ``use_kernel=False`` they say ``path == "plain-btdb"``, leave the
+     kernel's launch count alone and agree with ``BilinearForm.apply`` to
+     the same tolerances;
   4. slice 1's main path: ``entry(n=48, order=2)`` (912,673 DOFs, float32),
      one GMRES backward-Euler step through the z-periodic kernel, checked
      for convergence and against the same step through the plain version;
@@ -142,7 +144,8 @@ from cmfem_tpu_torch.kernels import build as kbuild  # noqa: E402
 from cmfem_tpu_torch.kernels import sumfact as ksum  # noqa: E402
 from cmfem_tpu_torch.kernels import zchain as kz  # noqa: E402
 from cmfem_tpu_torch.ops import BilinearForm, SpaceOps  # noqa: E402
-from cmfem_tpu_torch.ops.partial import PAOperator  # noqa: E402
+from cmfem_tpu_torch.ops.partial import (  # noqa: E402
+    PAOperator, StructuredPAOperator)
 from cmfem_tpu_torch.ops.sumfact import SumFactoredOperator  # noqa: E402
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -384,7 +387,15 @@ def check_step(step, u0, arrays, label, fn=None, floor_ok=False):
 
 # relative L2 errors of the JAX driver (cmfem_tpu.apps.linear_cd_transient,
 # float64 on a CPU) after 5 backward-Euler steps of dt = 1e-3 on the 9a mesh,
-# Peclet 1, 10, 100: the level the port's errors are held to
+# Peclet 1, 10, 100: the level the port's errors are held to.  They are
+# columns rel_l2_pe1..3 of the last row of out/error_history.csv after
+#   python -c "from cmfem_tpu_torch.core.mesh import make_cartesian_mesh_2d,
+#              write_gmsh; write_gmsh(make_cartesian_mesh_2d(64, 64),
+#              'quads.msh')"
+#   CMFEM_FORCE_CPU=1 python -m cmfem_tpu.apps.linear_cd_transient -i cfg.yaml
+# with cfg.yaml holding mesh_file: quads.msh, serial_ref_levels: 2, order: 2,
+# dt: 1.0e-3, t_final: 5.0e-3, save_paraview: false, output_path: out
+# (about five minutes on a CPU).
 JAX_9A_REL_L2 = (0.027785646940431372, 0.03062068928657793,
                  0.040363822834497944)
 
@@ -648,8 +659,9 @@ def main():
                     f"{'ok' if ok else 'FAIL'}")
                 assert ok, (dim, order, dtype, err)
 
-    # elements the kernel has no instantiation for: the plain path, chosen
-    # at construction by shape, against BilinearForm.apply
+    # elements the kernel has no instantiation for: refused at construction
+    # on the card, as btdb_apply refuses them; the plain version, asked for
+    # by name, against BilinearForm.apply
     tri = make_cartesian_mesh_2d(7, 5, geom="triangle")
     for mesh, dim, order, quad_order in (
             (tri, 2, 1, 2), (tri, 2, 2, 4), (tri, 2, 3, 6),
@@ -663,22 +675,31 @@ def main():
                               device=dev)
         y_ref = form.apply(data, u64)
         for dtype in (torch.float64, F32):
-            pa = PAOperator(ops, data, dtype=dtype)
+            try:
+                PAOperator(ops, data, dtype=dtype)
+                raise AssertionError("PAOperator took a shape the kernel "
+                                     "has no instantiation for")
+            except ValueError as e:
+                refusal = str(e)
+            assert "not one of" in refusal, refusal
+            pa = PAOperator(ops, data, dtype=dtype, use_kernel=False)
             before = kbtdb.launches
             err = rel_err(pa(u64.to(dtype)).double(), y_ref)
-            ok = (err <= TOL[dtype] and pa.path == "plain"
+            ok = (err <= TOL[dtype] and pa.path == "plain-btdb"
                   and pa.BG_stream is None and kbtdb.launches == before)
             log(f"phase 3: {mesh.geom} p={order} (m={pa.m}, "
-                f"nd={pa.BG.shape[1]}, nq={pa.nq}) {str(dtype)[6:]}: path "
-                f"{pa.path}, max|y - apply|/max|y| = {err:.3e} (tol "
+                f"nd={pa.BG.shape[1]}, nq={pa.nq}) {str(dtype)[6:]}: refused "
+                f"at construction; use_kernel=False -> {pa.path}, "
+                f"max|y - apply|/max|y| = {err:.3e} (tol "
                 f"{TOL[dtype]:.0e}), B1 launches moved "
                 f"{kbtdb.launches - before} {'ok' if ok else 'FAIL'}")
             assert ok, (mesh.geom, order, dtype, err, pa.path)
-    try:  # the wrapper itself still refuses such a shape on the card
+    log(f"phase 3: the refusal: {refusal}")
+    try:  # the wrapper itself refuses such a shape on the card too
         kbtdb.btdb_apply(pa.BG, u64.to(F32)[pa.eldofs_T], pa.Dflat)
         raise AssertionError("btdb_apply took a shape it has no kernel for")
     except ValueError as e:
-        log(f"phase 3: btdb_apply on that shape raises: {e}")
+        assert str(e) == refusal, (str(e), refusal)
 
     # -- 4. slice 1's main path -----------------------------------------------
     (step, (u0, D)), setup_s = timed(lambda: entry(n=48, order=2, dtype=F32))
@@ -785,8 +806,9 @@ def main():
                           graph=True)
     b1_call = median_ms(lambda: kbtdb.btdb_apply(BG, u_eT, Dflat_s, BGs))
     b1_bound = bound(nbytes(BG, u_eT, Dflat_s, u_eT), btdb_flops(BG, Dflat_s))
-    spa_op.path = "plain"  # the same operator through btdb_plain
-    spa_plain, _ = spa_op.bind()
+    # the same arrays through btdb_plain
+    spa_plain, _ = StructuredPAOperator.from_arrays(
+        Dflat_s, BG, grid, device=dev, dtype=F32, use_kernel=False).bind()
     b1g_k, b1g_p = in_turns(lambda: spa_step.fn(u, Dflat_s),
                             lambda: spa_plain(u, Dflat_s))
     ue = u[lat]

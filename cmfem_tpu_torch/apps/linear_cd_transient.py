@@ -245,33 +245,27 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     last = None
     timer = StepTimer()
     timing = []
-    if bool(cfg.get("scan_stepping", False)) and nsteps > 0:
-        # the whole time loop with the Dirichlet schedule and the per-step
-        # L2 errors kept on the device: one read-back per run instead of
-        # one per step
-        hist = []
-        for step in range(1, nsteps + 1):
-            t = step * dt
-            with timer.phase("solve"):
-                cs = step_all(cs, stage_values(t))
-            with timer.phase("errors_io"):
+    # scan_stepping: the same loop with the per-step L2 errors left on the
+    # device (as the Dirichlet schedule always is) and read back once per
+    # run instead of once per step; fields are saved at the end only
+    defer = bool(cfg.get("scan_stepping", False))
+    hist = []
+    for step in range(1, nsteps + 1):
+        t = step * dt
+        with timer.phase("solve"):
+            cs = step_all(cs, stage_values(t))
+        with timer.phase("errors_io"):
+            if defer:
                 hist.append(errors(t))
-            timing.append(timer.step_reset())
-        hist = torch.stack(hist).cpu().numpy()
-        for step in range(1, nsteps + 1):
-            row = [step, step * dt] + [float(v) for v in hist[step - 1]]
-            csv.writerow(row)
-            last = row
-        save_fields(nsteps, nsteps * dt)
-    else:
-        for step in range(1, nsteps + 1):
-            t = step * dt
-            with timer.phase("solve"):
-                cs = step_all(cs, stage_values(t))
-            with timer.phase("errors_io"):
+            else:
                 last = write_errors(step, t)
                 save_fields(step, t)
-            timing.append(timer.step_reset())
+        timing.append(timer.step_reset())
+    if hist:
+        for step, vals in enumerate(torch.stack(hist).cpu().numpy(), 1):
+            last = [step, step * dt] + [float(v) for v in vals]
+            csv.writerow(last)
+        save_fields(nsteps, nsteps * dt)
 
     csv.close()
     return {"final_errors": last, "c": cs.cpu().numpy(), "fes": fes,

@@ -107,11 +107,6 @@ def _device(device):
     return require_cuda() if device is None else torch.device(device)
 
 
-def _btdb_path(op):
-    """The step's name for an element-batched operator's path."""
-    return "plain-btdb" if op.path == "plain" else op.path
-
-
 def _step(form_fn, n, order, device, dtype, solver, operator="sumfact"):
     if operator not in OPERATORS:
         raise ValueError(f"operator must be one of {OPERATORS}, "
@@ -130,7 +125,7 @@ def _step(form_fn, n, order, device, dtype, solver, operator="sumfact"):
     if operator == "pa":
         op = PAOperator(ops, ldata, dtype=dtype)
         fn, *arrays = op.bind()
-        path = _btdb_path(op)
+        path = op.path
         mask = EssentialBC(fes.nscalar, fes.boundary_dofs(),
                            device=device).mask
         diag = diag.to(dtype)
@@ -144,7 +139,7 @@ def _step(form_fn, n, order, device, dtype, solver, operator="sumfact"):
         else:
             op = StructuredPAOperator(ops, ldata, grid, dtype=dtype)
             fn, D = op.bind()
-            path = _btdb_path(op)
+            path = op.path
         arrays = [D]
         mask = torch.as_tensor(grid.boundary_mask(), device=device)
         diag = lattice_diagonal(diag, fes, grid, device=device, dtype=dtype)

@@ -189,6 +189,19 @@ def tiled_blocks_per_sm(nd: int, itemsize: int) -> int:
     return n
 
 
+def require_kernel(device, dtype, m: int, nd: int, nq: int):
+    """Raise unless the kernel takes (m, nd, nq) tensors of ``dtype`` on
+    ``device``: a CUDA device, f32 or f64, a shape in KERNEL_SHAPES."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"btdb_apply: unsupported device {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"btdb_apply: dtype {dtype} not supported")
+    if (m, nd, nq) not in KERNEL_SHAPES:
+        raise ValueError(f"btdb_apply: (m, nd, nq) = ({m}, {nd}, {nq}) is "
+                         f"not one of {KERNEL_SHAPES}")
+
+
 def btdb_apply(BG, u_eT, Dflat, packed=None):
     """y_eT (nd, ne): the CUDA kernel on a CUDA tensor, the plain version on
     CPU.  ``packed`` is ``pack_bg(BG, m, nq)`` where the caller keeps it (the
@@ -198,19 +211,15 @@ def btdb_apply(BG, u_eT, Dflat, packed=None):
     global launches
     if u_eT.device.type == "cpu":
         return btdb_plain(BG, u_eT, Dflat)
-    if u_eT.device.type != "cuda":
-        raise ValueError(f"btdb_apply: unsupported device {u_eT.device}")
-    if u_eT.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"btdb_apply: dtype {u_eT.dtype} not supported")
     if Dflat.dim() != 3 or BG.dim() != 2 or u_eT.dim() != 2:
         raise ValueError("btdb_apply: expected BG (m*nq, nd), u_eT (nd, ne),"
                          " Dflat (m*m, nq, ne)")
     mm, nq, ne = Dflat.shape
     nd = u_eT.shape[0]
     m = int(round(mm ** 0.5))
-    if (m, nd, nq) not in KERNEL_SHAPES or m * m != mm:
-        raise ValueError(f"btdb_apply: (m, nd, nq) = ({m}, {nd}, {nq}) is "
-                         f"not one of {KERNEL_SHAPES}")
+    if m * m != mm:
+        raise ValueError(f"btdb_apply: Dflat has {mm} blocks, not m*m")
+    require_kernel(u_eT.device, u_eT.dtype, m, nd, nq)
     for name, t, shape in (("BG", BG, (m * nq, nd)), ("u_eT", u_eT, (nd, ne)),
                            ("Dflat", Dflat, (mm, nq, ne))):
         if t.device != u_eT.device or t.dtype != u_eT.dtype:

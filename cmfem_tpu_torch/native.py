@@ -3,8 +3,10 @@
 A copy of ``cmfem_tpu/native/__init__.py`` (ctypes and numpy only), bound to
 the same ``native/libcmfem_native.so`` at the repository root.  The native
 library provides the runtime pieces the reference implements in
-C++ (Gmsh IO, DOF topology, partitioning); the Python callers fall back to
-their numpy implementations when the library hasn't been built.  Build:
+C++ (Gmsh IO, DOF topology, partitioning); the Python callers have numpy
+implementations of the same functions, which run when the library is absent
+or does not load.  ``load_native`` says so once, with a warning, and builds
+nothing: the library is made beforehand with
 
     make -C native
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
+import warnings
 
 import numpy as np
 
@@ -25,25 +27,21 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libcmfem_native.so")
 
 
-def load_native(build_if_missing: bool = True):
-    """Return the loaded library or None."""
+def load_native():
+    """Return the loaded library, or None (with one warning that names the
+    reason) where it is absent or does not load."""
     global _LIB, _TRIED
     if _LIB is not None:
         return _LIB
     if _TRIED:
         return None
     _TRIED = True
-    if not os.path.exists(_LIB_PATH) and build_if_missing:
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
-    if not os.path.exists(_LIB_PATH):
-        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+    except OSError as e:
+        warnings.warn(f"native library not loaded ({e}): the GMSH reader, "
+                      f"the edge enumeration and the point locator run "
+                      f"their numpy versions", RuntimeWarning, stacklevel=2)
         return None
 
     lib.gmsh_open.restype = ctypes.c_void_p

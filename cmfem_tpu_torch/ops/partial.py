@@ -4,13 +4,15 @@ Port of ``cmfem_tpu/ops/partial.py``: ``pack_qp_blocks_T``,
 ``StructuredGrid3D``, and the two element-batched operators that apply
 B^T D B per element, ``PAOperator`` (any mesh: ``u[eldofs]`` gather and
 ``index_add_`` scatter) and ``StructuredPAOperator`` (lattice gather and
-scatter of ``StructuredGrid3D``).  Their element stage is decided at
-construction, by shape (``element_path``): ``kernels.btdb.btdb_apply``, the
-hand-written CUDA kernel that replaces the TPU's ``_pallas_btdb``, where the
-kernel is instantiated for the element and the tensors are CUDA f32/f64;
-``btdb_plain`` (a port of ``_xla_btdb``, which takes any mesh) otherwise.
-The gather and scatter stay torch ops, as the JAX package keeps them
-outside its Pallas kernel.
+scatter of ``StructuredGrid3D``).  Their element stage is decided once, at
+construction (``element_path``): on CUDA tensors it is
+``kernels.btdb.btdb_apply``, the hand-written CUDA kernel that replaces the
+TPU's ``_pallas_btdb``, and an element the kernel has no instantiation for
+(triangles, tets, a rule with more than p + 1 points per axis) is refused
+there and then; ``btdb_plain`` (a port of ``_xla_btdb``, which takes any
+mesh) runs on CPU tensors and where the caller asks for it with
+``use_kernel=False``.  The gather and scatter stay torch ops, as the JAX
+package keeps them outside its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from .assembly import SpaceOps, OperatorData
 from ..core.reference_elements import get_reference_element, HEXAHEDRON
-from ..kernels.btdb import KERNEL_SHAPES, btdb_apply, btdb_plain, pack_bg
+from ..kernels.btdb import btdb_apply, btdb_plain, pack_bg, require_kernel
 
 
 def _tensor(a, device, dtype):
@@ -34,36 +36,45 @@ def _tensor(a, device, dtype):
 def element_path(m: int, nd: int, nq: int, device, dtype,
                  use_kernel: bool = True) -> str:
     """The element stage of an operator with ``nd`` DOFs and ``nq`` points
-    per element in ``m - 1`` dimensions: ``"cuda-btdb"`` (the B1 kernel)
-    where the kernel is instantiated for (m, nd, nq), the device is CUDA and
-    the dtype f32 or f64, and the caller did not ask for the plain version;
-    ``"plain"`` (``btdb_plain``, any element) otherwise.  A choice of path
-    made once by shape: a kernel that fails to build or launch still raises,
-    and ``btdb_apply`` itself raises on a CUDA shape outside KERNEL_SHAPES."""
-    if (use_kernel and torch.device(device).type == "cuda"
-            and dtype in (torch.float32, torch.float64)
-            and (m, nd, nq) in KERNEL_SHAPES):
-        return "cuda-btdb"
-    return "plain"
+    per element in ``m - 1`` dimensions: ``"plain-btdb"`` (``btdb_plain``,
+    any element) on a CPU device or with ``use_kernel=False``, else
+    ``"cuda-btdb"`` (the B1 kernel).  Raises as ``btdb_apply`` would where
+    the kernel does not take the device, the dtype or (m, nd, nq): the plain
+    version never stands in for the kernel unasked."""
+    if not use_kernel or torch.device(device).type == "cpu":
+        return "plain-btdb"
+    require_kernel(device, dtype, m, nd, nq)
+    return "cuda-btdb"
 
 
-def _init_element_stage(op, use_kernel):
-    """Set ``op.path`` and, on the kernel path only, ``op.BG_stream`` (the
-    kernel's layout of BG, once and not per apply)."""
-    nd = op.BG.shape[1]
-    op.path = element_path(op.m, nd, op.nq, op.device, op.dtype, use_kernel)
-    op.BG_stream = pack_bg(op.BG, op.m, op.nq) \
-        if op.path == "cuda-btdb" else None
+class _ElementBatched:
+    """What PAOperator and StructuredPAOperator share: the packed arrays and
+    the element stage, fixed at construction and named by ``path``."""
 
+    def _init_element_stage(self, Dflat, BG, use_kernel):
+        self.dtype, self.device = Dflat.dtype, Dflat.device
+        self.m = int(round(Dflat.shape[0] ** 0.5))
+        self.nq = Dflat.shape[1]
+        self._path = element_path(self.m, BG.shape[1], self.nq, self.device,
+                                  self.dtype, use_kernel)
+        self.Dflat = Dflat.contiguous()
+        self.BG = BG.contiguous()
+        # the kernel's layout of BG, once and not per apply
+        self.BG_stream = pack_bg(self.BG, self.m, self.nq) \
+            if self._path == "cuda-btdb" else None
 
-def _element_stage(op):
-    """fn(u_eT, Dflat) -> y_eT of an operator by its ``path``: the B1 kernel
-    wrapper with the operator's BG and its packed stream, or the plain
-    version."""
-    BG, packed = op.BG, op.BG_stream
-    if op.path == "cuda-btdb":
-        return lambda u_eT, Dflat: btdb_apply(BG, u_eT, Dflat, packed)
-    return lambda u_eT, Dflat: btdb_plain(BG, u_eT, Dflat)
+    @property
+    def path(self) -> str:
+        """``"cuda-btdb"`` or ``"plain-btdb"`` (see ``element_path``)."""
+        return self._path
+
+    def _element_stage(self):
+        """fn(u_eT, Dflat) -> y_eT: the B1 kernel wrapper with the operator's
+        BG and its packed stream, or the plain version."""
+        BG, packed = self.BG, self.BG_stream
+        if self._path == "cuda-btdb":
+            return lambda u_eT, Dflat: btdb_apply(BG, u_eT, Dflat, packed)
+        return lambda u_eT, Dflat: btdb_plain(BG, u_eT, Dflat)
 
 
 def pack_qp_blocks_T(ops: SpaceOps, data: OperatorData, dtype=torch.float32,
@@ -98,14 +109,14 @@ def pack_qp_blocks_T(ops: SpaceOps, data: OperatorData, dtype=torch.float32,
     return Dflat, BG.to(dtype)
 
 
-class PAOperator:
+class PAOperator(_ElementBatched):
     """Matrix-free operator for an arbitrary (unstructured) mesh.
 
     Gather/scatter via ``u[eldofs]`` / ``index_add_``; the element stage is
-    named by ``path``: ``"cuda-btdb"`` (the B1 kernel: CUDA tensors, hexes
-    and quads at orders 1-4 with p + 1 points per axis) or ``"plain"``
-    (every other element, CPU tensors, or ``use_kernel=False``).  Acts on
-    entity-numbered vectors."""
+    named by ``path``: ``"cuda-btdb"`` (the B1 kernel, on CUDA tensors: hexes
+    and quads at orders 1-4 with p + 1 points per axis, and a ValueError at
+    construction for any other element) or ``"plain-btdb"`` (CPU tensors,
+    or ``use_kernel=False``).  Acts on entity-numbered vectors."""
 
     def __init__(self, ops: SpaceOps, data: OperatorData, *,
                  dtype=torch.float32, use_kernel: bool = True):
@@ -126,13 +137,8 @@ class PAOperator:
         return op
 
     def _init_arrays(self, Dflat, BG, eldofs, nscalar, use_kernel):
-        self.dtype, self.device = Dflat.dtype, Dflat.device
-        self.m = int(round(Dflat.shape[0] ** 0.5))
-        self.nq = Dflat.shape[1]
+        self._init_element_stage(Dflat, BG, use_kernel)
         self.nscalar = int(nscalar)
-        self.Dflat = Dflat.contiguous()
-        self.BG = BG.contiguous()
-        _init_element_stage(self, use_kernel)
         # element DOFs in the transposed layout (nd, ne), so that u[eldofs_T]
         # is u_eT and index_add_ reads it flat, with no copy per apply
         self.eldofs_T = eldofs.to(device=self.device,
@@ -143,7 +149,7 @@ class PAOperator:
         the big arrays passed as arguments (the JAX package's contract; the
         element DOFs travel transposed, (nd, ne))."""
         nscalar, dtype = self.nscalar, self.dtype
-        apply_ = _element_stage(self)
+        apply_ = self._element_stage()
 
         def fn(u, Dflat, eldofs_T):
             y_eT = apply_(u.to(dtype)[eldofs_T], Dflat)
@@ -219,7 +225,7 @@ class StructuredGrid3D:
         return np.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)], axis=1)
 
 
-class StructuredPAOperator:
+class StructuredPAOperator(_ElementBatched):
     """Lattice gather/scatter + the element-batched B1 apply.
 
     Built from a SpaceOps on a ``make_cartesian_mesh_3d`` mesh; the
@@ -246,17 +252,12 @@ class StructuredPAOperator:
 
     def _init_arrays(self, Dflat, BG, grid, use_kernel):
         self.grid = grid
-        self.dtype, self.device = Dflat.dtype, Dflat.device
-        self.m = int(round(Dflat.shape[0] ** 0.5))
-        self.nq = Dflat.shape[1]
-        self.Dflat = Dflat.contiguous()
-        self.BG = BG.contiguous()
-        _init_element_stage(self, use_kernel)
+        self._init_element_stage(Dflat, BG, use_kernel)
 
     def bind(self):
         """(fn(u, Dflat) -> y, Dflat); see PAOperator.bind."""
         grid, dtype = self.grid, self.dtype
-        apply_ = _element_stage(self)
+        apply_ = self._element_stage()
 
         def fn(u, Dflat):
             return grid.scatter(apply_(grid.gather(u.to(dtype)), Dflat))

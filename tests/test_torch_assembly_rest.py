@@ -269,17 +269,20 @@ def test_weighted_and_nodal_error_norms_match(kind):
            jasm.linf_error(jops.fes, ju, lambda x, t: t * x[:, 0], time=2.0))
 
 
-# -- the element stage of the element-batched operators, chosen by shape ----
+# -- the element stage of the element-batched operators, fixed at construction
 
 @pytest.mark.parametrize("shape", KERNEL_SHAPES)
 def test_element_path_takes_the_kernel_where_instantiated(shape):
     for dtype in (torch.float32, torch.float64):
         assert element_path(*shape, "cuda", dtype) == "cuda-btdb"
         assert element_path(*shape, "cuda:1", dtype) == "cuda-btdb"
-        assert element_path(*shape, "cpu", dtype) == "plain"
+        assert element_path(*shape, "cpu", dtype) == "plain-btdb"
         assert element_path(*shape, "cuda", dtype,
-                            use_kernel=False) == "plain"
-    assert element_path(*shape, "cuda", torch.float16) == "plain"
+                            use_kernel=False) == "plain-btdb"
+    with pytest.raises(TypeError, match="not supported"):
+        element_path(*shape, "cuda", torch.float16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        element_path(*shape, "meta", torch.float32)
 
 
 @pytest.mark.parametrize("shape", [
@@ -289,8 +292,14 @@ def test_element_path_takes_the_kernel_where_instantiated(shape):
     (4, 27, 64), (3, 9, 16),             # rules with q1 != p + 1
 ])
 def test_element_path_is_plain_elsewhere(shape):
-    for dev in ("cuda", "cpu"):
-        assert element_path(*shape, dev, torch.float32) == "plain"
+    """No instantiation of the kernel: a CUDA operator is refused in
+    ``btdb_apply``'s words, and the plain version runs only on the CPU or
+    where the caller asks for it."""
+    with pytest.raises(ValueError, match="not one of"):
+        element_path(*shape, "cuda", torch.float32)
+    assert element_path(*shape, "cpu", torch.float32) == "plain-btdb"
+    assert element_path(*shape, "cuda", torch.float32,
+                        use_kernel=False) == "plain-btdb"
 
 
 @pytest.mark.parametrize("kind,order,quad_order", [
@@ -299,17 +308,19 @@ def test_element_path_is_plain_elsewhere(shape):
 ])
 def test_pa_operator_path_on_cpu_matches_apply(kind, order, quad_order):
     """On CPU tensors every operator is on the plain path, packs no stream,
-    and agrees with ``BilinearForm.apply`` (1e-12 of max|y|).  (Both
-    packages' spaces stop at order 4, so the hexes the kernel has no
-    instantiation for are those of a rule with more than p + 1 points per
-    axis, and order-5 shapes given as arrays below.)"""
+    and agrees with ``BilinearForm.apply`` (1e-12 of max|y|); ``path`` is
+    read-only.  (Both packages' spaces stop at order 4, so the hexes the
+    kernel has no instantiation for are those of a rule with more than
+    p + 1 points per axis, and order-5 shapes given as arrays below.)"""
     _, mesh = _meshes(kind) if kind != "hex" \
         else (None, make_cartesian_mesh_3d(1, 2, 1))
     ops = SpaceOps(FESpace(mesh, order), quad_order=quad_order, device="cpu")
     form = BilinearForm(ops).add_mass(1.0).add_diffusion(_smooth)
     data = form.assemble()
     pa = PAOperator(ops, data, dtype=torch.float64)
-    assert pa.path == "plain" and pa.BG_stream is None
+    assert pa.path == "plain-btdb" and pa.BG_stream is None
+    with pytest.raises(AttributeError):
+        pa.path = "cuda-btdb"
     u = torch.as_tensor(np.random.default_rng(3).standard_normal(
         ops.fes.nscalar))
     y, ref = pa(u), form.apply(data, u)
@@ -317,12 +328,13 @@ def test_pa_operator_path_on_cpu_matches_apply(kind, order, quad_order):
     if kind == "hex":
         spa = StructuredPAOperator(ops, data, StructuredGrid3D(1, 2, 1, order),
                                    dtype=torch.float64)
-        assert spa.path == "plain" and spa.BG_stream is None
+        assert spa.path == "plain-btdb" and spa.BG_stream is None
 
 
 def test_pa_operator_from_arrays_at_order_5_shapes_is_plain():
     """(m, nd, nq) = (4, 216, 216), a hex at order 5, given as arrays: the
-    plain path, and the apply is gather, ``btdb_plain``, ``index_add_``."""
+    plain path on the CPU, and the apply is gather, ``btdb_plain``,
+    ``index_add_``."""
     from cmfem_tpu_torch.kernels.btdb import btdb_plain
 
     rng = np.random.default_rng(5)
@@ -331,7 +343,7 @@ def test_pa_operator_from_arrays_at_order_5_shapes_is_plain():
     eldofs = np.stack([rng.permutation(n)[:nd] for _ in range(ne)])
     pa = PAOperator.from_arrays(D, BG, eldofs, n, device="cpu",
                                 dtype=torch.float64)
-    assert pa.path == "plain" and pa.BG_stream is None
+    assert pa.path == "plain-btdb" and pa.BG_stream is None
     u = torch.as_tensor(rng.standard_normal(n))
     y_eT = btdb_plain(pa.BG, u[pa.eldofs_T], pa.Dflat)
     ref = torch.zeros(n, dtype=torch.float64).index_add_(
@@ -341,12 +353,12 @@ def test_pa_operator_from_arrays_at_order_5_shapes_is_plain():
 
 @pytest.mark.gpu
 def test_cuda_pa_operator_paths_agree_with_apply():
-    """On the card: triangles at orders 1-3 and hexes with 6 points per axis
-    at order 4 go through the plain path and leave the kernel's launch count
-    alone; hexes and quads at orders 1-4 go through the kernel and move it.
-    Each agrees with ``BilinearForm.apply`` (float64 1e-12, float32 1e-5 of
-    max|y|); ``btdb_apply`` itself still raises on a shape it has no
-    instantiation for."""
+    """On the card: hexes and quads at orders 1-4 go through the kernel and
+    move its launch count.  Triangles at orders 1-3 and hexes with more than
+    p + 1 points per axis are refused at construction, as ``btdb_apply``
+    refuses them, and with ``use_kernel=False`` go through the plain version
+    and leave the count alone.  Each apply agrees with
+    ``BilinearForm.apply`` (float64 1e-12, float32 1e-5 of max|y|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cmfem_tpu_torch.kernels import btdb as kbtdb
@@ -356,33 +368,38 @@ def test_cuda_pa_operator_paths_agree_with_apply():
     tri = make_cartesian_mesh_2d(7, 5, geom="triangle")
     quad = make_cartesian_mesh_2d(7, 5)
     hexes = make_cartesian_mesh_3d(3, 4, 5)
-    cases = [(tri, p, 2 * p, "plain") for p in (1, 2, 3)]
-    cases += [(hexes, 4, 11, "plain"), (hexes, 2, 7, "plain")]
-    cases += [(m, p, 2 * p, "cuda-btdb") for m in (quad, hexes)
+    cases = [(tri, p, 2 * p, False) for p in (1, 2, 3)]
+    cases += [(hexes, 4, 11, False), (hexes, 2, 7, False)]
+    cases += [(m, p, 2 * p, True) for m in (quad, hexes)
               for p in (1, 2, 3, 4)]
-    for mesh, order, quad_order, path in cases:
+    for mesh, order, quad_order, kernel in cases:
         ops = SpaceOps(FESpace(mesh, order), quad_order=quad_order, device=dev)
         form = BilinearForm(ops).add_mass(1.0).add_diffusion(_smooth)
         data = form.assemble()
         u = torch.as_tensor(rng.standard_normal(ops.fes.nscalar), device=dev)
         ref = form.apply(data, u)
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-            pa = PAOperator(ops, data, dtype=dtype)
-            assert pa.path == path, (mesh.geom, order, quad_order)
+            if not kernel:
+                with pytest.raises(ValueError, match="not one of"):
+                    PAOperator(ops, data, dtype=dtype)
+            pa = PAOperator(ops, data, dtype=dtype, use_kernel=kernel)
+            assert pa.path == ("cuda-btdb" if kernel else "plain-btdb")
             assert (pa.BG_stream is not None) == (
                 (pa.m, pa.BG.shape[1], pa.nq) in kbtdb.TILED_SHAPES
-                and path == "cuda-btdb")
+                and kernel)
             before = kbtdb.launches
             y = pa(u.to(dtype))
-            assert kbtdb.launches == before + (path == "cuda-btdb")
+            assert kbtdb.launches == before + kernel
             err = float((y.double() - ref).abs().max() / ref.abs().max())
             assert err <= tol, (mesh.geom, order, quad_order, dtype, err)
-            if path == "plain":
+            if not kernel:
                 with pytest.raises(ValueError, match="not one of"):
                     kbtdb.btdb_apply(pa.BG, u.to(dtype)[pa.eldofs_T],
                                      pa.Dflat)
-    spa = StructuredPAOperator(
-        SpaceOps(FESpace(hexes, 2), quad_order=7, device=dev),
-        BilinearForm(SpaceOps(FESpace(hexes, 2), quad_order=7, device=dev))
-        .add_mass(1.0).assemble(), StructuredGrid3D(3, 4, 5, 2))
-    assert spa.path == "plain" and spa.BG_stream is None
+    ops = SpaceOps(FESpace(hexes, 2), quad_order=7, device=dev)
+    data = BilinearForm(ops).add_mass(1.0).assemble()
+    grid = StructuredGrid3D(3, 4, 5, 2)
+    with pytest.raises(ValueError, match="not one of"):
+        StructuredPAOperator(ops, data, grid)
+    spa = StructuredPAOperator(ops, data, grid, use_kernel=False)
+    assert spa.path == "plain-btdb" and spa.BG_stream is None

@@ -103,6 +103,27 @@ def test_sampling_functions_equal_jax():
         jloc.front_depth(jfes.mesh, ev, 0.5, 1.0, 0.0, 0.1)
 
 
+def test_native_loader_says_when_the_library_is_absent(tmp_path, monkeypatch):
+    """No library at the path: one RuntimeWarning, None, nothing built, and
+    the callers take their numpy versions."""
+    import warnings
+
+    monkeypatch.setattr(native, "_LIB_PATH", str(tmp_path / "absent.so"))
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    with pytest.warns(RuntimeWarning, match="native library not loaded"):
+        assert native.load_native() is None
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert native.load_native() is None  # said once
+        path = write_gmsh(disc_mesh(4), str(tmp_path / "disc.msh"))
+        assert native.gmsh_parse_native(path) is None
+        mesh = load_gmsh(path)
+    assert list(tmp_path.iterdir()) == [tmp_path / "disc.msh"]
+    np.testing.assert_array_equal(
+        mesh.elem_conn, load_gmsh(path, use_native=False).elem_conn)
+
+
 def test_native_loader_and_gmsh_parser(tmp_path):
     """With the native library: its gmsh parser gives the Python reader's
     mesh, and its bucket-grid candidates give the numpy sweep's elements.
@@ -116,7 +137,7 @@ def test_native_loader_and_gmsh_parser(tmp_path):
     jm = j_load_gmsh(path, use_native=False)
     np.testing.assert_array_equal(py.vertices, jm.vertices)
     np.testing.assert_array_equal(py.bdr_conn, jm.bdr_conn)
-    if native.load_native(build_if_missing=False) is None:
+    if native.load_native() is None:
         assert native.gmsh_parse_native(path) is None
         return
     nat = load_gmsh(path)
