@@ -94,15 +94,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      64 x 64 quads) and ``linear_cd_2d_circle`` (order 2, the square mapped
      onto the unit disc, 32 x 32 x 2 triangles refined once): GMRES
      converges.  The drivers apply their forms with torch einsums and
-     ``index_add_``: no kernel is on this path, and no launch count moves.
+     ``index_add_``: no kernel is on this path, and no launch count moves;
+ 10. slice 7, the nonlinear, vector, ALE and Q* drivers through ``run``,
+     float64 (``run_nonlinear_drivers``, sizes as arguments): (a)
+     ``nonlinear_diffusion`` on 128 x 128 quads of side 0.01, order 2
+     (66,049 DOFs), dt 0.1, 3 backward-Euler steps of full Newton (AD
+     element Jacobians for the Jacobi diagonal, GMRES on the AD JVP): every
+     Newton solve converges, rel L2 < 2e-2 and equal to the JAX driver's to
+     1e-6 relative, equal Newton counts; (b) ``elasticity``, the 2D default
+     (40 x 4 quads, order 2) and a 40 x 4 x 4 hex cantilever, order 2:
+     Jacobi-CG converges (or stops at the float64 floor within 1e-9) under
+     solver_maxiter, the tip deflection within 8% of Euler-Bernoulli; (c)
+     ``diffusion_mms_ale`` on 64 x 64 x 2 triangles refined once, order 1
+     (16,641 DOFs), dt 0.05, 3 steps: ``identity`` equals ``diffusion_mms``
+     to 1e-8, ``accuracy_a``'s L2 < 2e-2 and equal to the JAX driver's to
+     1e-6 relative; (d) ``qstar_blowing_1d`` at 512 elements: converged,
+     |sdot error| < 5e-3, sdot equal to the JAX driver's to 1e-10 relative,
+     equal Newton count.  No kernel lies on these paths; no launch count
+     moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
 sum-factorization kernel also ``earlier_ms``, the colour design's time in
-the same run), before it the drivers' JSON record (DOFs, steps, seconds per
-step, Krylov iterations, errors), then the card's name and power limit, and
+the same run), before it the drivers' JSON records (phase 9's and phase
+10's: DOFs, steps, seconds per step, Newton and Krylov iterations, errors;
+phase 10's with the card), then the card's name and power limit, and
 {"ok": true,
 "device": {...}}.  Imports no JAX.
 """
@@ -136,7 +154,9 @@ from cmfem_tpu_torch.entry import (  # noqa: E402
     vc_entry,
 )
 from cmfem_tpu_torch.apps import (  # noqa: E402
-    diffusion_mms, linear_cd_2d, linear_cd_2d_circle, linear_cd_transient,
+    diffusion_mms, diffusion_mms_ale, elasticity, linear_cd_2d,
+    linear_cd_2d_circle, linear_cd_transient, nonlinear_diffusion,
+    qstar_blowing_1d,
 )
 from cmfem_tpu_torch.core import pointlocate  # noqa: E402
 from cmfem_tpu_torch.kernels import btdb as kbtdb  # noqa: E402
@@ -536,6 +556,186 @@ def run_drivers(device, tmp, n_cd=64, ref_cd=2, n_tri=32, steps=5,
             "run_s": secs, "s_per_step": r["solve_seconds"],
             "krylov_iters_per_step": res.inner_iters,
             "abs_l2": r["abs_l2"], "rel_l2": r["rel_l2"]})
+    return records
+
+
+# figures of the JAX drivers (float64 on a CPU) on phase 10's
+# configurations, the level the port is held to.  From, in a scratch
+# directory with PYTHONPATH at the repo and CMFEM_FORCE_CPU=1:
+#   python -c "from cmfem_tpu_torch.core.mesh import make_cartesian_mesh_2d,
+#              write_gmsh; write_gmsh(make_cartesian_mesh_2d(128, 128,
+#              sx=0.01, sy=0.01), 'square_0p01.msh');
+#              write_gmsh(make_cartesian_mesh_2d(64, 64, geom='triangle'),
+#              'tris.msh')"
+#   python -m cmfem_tpu.apps.nonlinear_diffusion -i nl.yaml
+#   python -m cmfem_tpu.apps.diffusion_mms_ale -i ale.yaml
+#   python -m cmfem_tpu.apps.qstar_blowing_1d --num-elements 512 --quiet
+#          --output-dir out_q
+# nl.yaml: mesh_file: square_0p01.msh, order: 2, dt: 0.1, t_final: 0.3,
+# L: 0.01, series_terms: 400, save_paraview: false, newton_print_level: 0,
+# output_path: out_nl (10a: the last row's rel_l2 and the newton_iters
+# column of error_history_nonlinear_1D.csv; about two minutes);
+# ale.yaml: mesh_file: tris.msh, serial_ref_levels: 1, order: 1,
+# alpha: 0.1, dt: 0.05, t_final: 0.15, ale_map: accuracy_a,
+# save_paraview: false, output_path: out_ale (10c: the last row's l2_error
+# of error_history.csv); 10d: sdot_numerical_m_s of
+# out_q/qstar_blowing_summary.csv and the printed Newton iterations.
+JAX_10A_REL_L2 = 0.002946592118578706
+JAX_10A_NEWTON = [4, 4, 3]
+JAX_10C_L2 = 0.005247881677260601
+JAX_10D_SDOT = 3.9971577446211632e-04
+JAX_10D_ITERS = 3
+
+
+def run_nonlinear_drivers(device, tmp, n_nl=128, n_ale=64, n_q=512,
+                          beam3d=(40, 4, 4), steps=3, refs=True):
+    """Phase 10: the slice-7 drivers through ``run(cfg)`` (``run(p)`` for
+    Q*), float64; returns the ``nonlinear_drivers`` record.  The sizes are
+    arguments so that the control flow can be rehearsed small on a CPU;
+    ``refs`` holds the results to the JAX drivers' figures above, which
+    belong to the default sizes only."""
+    mesh = lambda name, m: write_gmsh(m, os.path.join(tmp, name))
+    out = lambda name: os.path.join(tmp, name)
+    records = []
+
+    # -- 10a. nonlinear_diffusion: BE + Newton, AD JVP and element Jacobians
+    sq = mesh("square_0p01.msh", make_cartesian_mesh_2d(n_nl, n_nl, sx=0.01,
+                                                         sy=0.01))
+    cfg = {"mesh_file": sq, "order": 2, "dt": 0.1, "t_final": steps * 0.1,
+           "L": 0.01, "series_terms": 400, "save_paraview": False,
+           "newton_print_level": 0, "output_path": out("nl")}
+    reset_counts()
+    r, secs = timed(lambda: nonlinear_diffusion.run(cfg, device=device))
+    assert not any(counts().values()), counts()
+    assert r["converged"] and np.isfinite(r["u"]).all()
+    per_step, other = step_seconds(r["timing"])
+    rel = r["final"][1]
+    newton = r["newton_iters"]
+    gmres_per_step = [sum(k) for k in r["krylov_iters"]]
+    split = {k: statistics.median(t[k] for t in r["timing"])
+             for k in ("residual", "jacobian", "linear")}
+    log(f"phase 10a: nonlinear_diffusion: {r['fes'].nscalar} DOFs, "
+        f"{len(newton)} steps, run {secs:.2f} s, median {per_step:.4f} "
+        f"s/step ({other:.1%} outside the Newton solves; in them, median "
+        f"s/step: residuals {split['residual']:.4f}, Jacobian diagonals "
+        f"and linearize traces {split['jacobian']:.4f}, GMRES "
+        f"{split['linear']:.4f}), Newton "
+        f"iterations {newton}, GMRES iterations per step {gmres_per_step}, "
+        f"final rel L2 {rel:.10e}")
+    assert 0 < rel < 2e-2, rel
+    if refs:
+        d = abs(rel / JAX_10A_REL_L2 - 1.0)
+        log(f"phase 10a: rel L2 vs the JAX driver's {JAX_10A_REL_L2!r}: "
+            f"relative difference {d:.3e} (tol 1e-6); Newton iterations "
+            f"{newton} vs {JAX_10A_NEWTON}")
+        assert d <= 1e-6 and newton == JAX_10A_NEWTON, (d, newton)
+    records.append({
+        "driver": "nonlinear_diffusion", "dofs": r["fes"].nscalar,
+        "steps": len(newton), "run_s": secs, "s_per_step": per_step,
+        "share_outside_solve": other, "newton_iters_per_step": newton,
+        "krylov_iters_per_step": gmres_per_step, "newton_split_s": split,
+        "rel_l2": rel})
+
+    # -- 10b. elasticity: the 2D default and a 3D cantilever, Jacobi-CG
+    E, nu, L, H, traction = 1.0e6, 0.3, 1.0, 0.1, -100.0
+    for dim, extra in ((2, {}), (3, dict(zip(("nx", "ny", "nz"), beam3d)))):
+        reset_counts()
+        r, secs = timed(lambda: elasticity.run(
+            {"dim": dim, "save_paraview": False,
+             "output_path": out(f"elast{dim}"), **extra}, device=device))
+        assert not any(counts().values()), counts()
+        res = r["solve"]
+        # Euler-Bernoulli: plane strain in 2D (E' = E / (1 - nu^2), load per
+        # unit thickness traction H); in 3D E, I = H^4 / 12, load traction H^2
+        if dim == 2:
+            beam = traction * H * L**3 / (3 * E / (1 - nu**2) * H**3 / 12)
+        else:
+            beam = traction * H * H * L**3 / (3 * E * H**4 / 12)
+        ratio = r["tip_deflection"] / beam
+        dofs = r["fes"].nscalar * dim
+        per_step, other = step_seconds(r["timing"])
+        shape = " x ".join(map(str, beam3d if dim == 3 else (40, 4)))
+        log(f"phase 10b: elasticity {dim}D {shape} order 2: {dofs} DOFs, run "
+            f"{secs:.2f} s, CG {r['timing'][0]['solve']:.3f} s ({other:.1%} "
+            f"of the run outside it), iterations {r['iters']} "
+            f"(solver_maxiter 5000), converged="
+            f"{res.converged} stagnated={res.stagnated} rel_residual="
+            f"{res.rel_residual:.3e}; tip deflection {r['tip_deflection']:.6e}"
+            f", Euler-Bernoulli {beam:.6e}, ratio {ratio:.5f} (within 8%)")
+        # converged, or stopped at the float64 floor within 10 x rtol 1e-10
+        assert res.converged or (res.stagnated and res.rel_residual <= 1e-9)
+        assert r["iters"] < 5000 and abs(ratio - 1.0) <= 0.08, ratio
+        records.append({
+            "driver": "elasticity", "variant": f"{dim}D {shape}",
+            "dofs": dofs, "steps": 1, "run_s": secs, "s_per_step": per_step,
+            "share_outside_solve": other, "krylov_iters_per_step": r["iters"],
+            "rel_residual": res.rel_residual,
+            "tip_deflection": r["tip_deflection"], "beam_ratio": ratio})
+
+    # -- 10c. diffusion_mms_ale: accuracy_a and identity (= diffusion_mms)
+    tris = mesh("tris_ale.msh", make_cartesian_mesh_2d(n_ale, n_ale,
+                                                       geom="triangle"))
+    base = {"mesh_file": tris, "serial_ref_levels": 1, "order": 1,
+            "alpha": 0.1, "dt": 0.05, "t_final": steps * 0.05,
+            "save_paraview": False}
+    ale = {}
+    for kind in ("accuracy_a", "identity"):
+        reset_counts()
+        r, secs = timed(lambda: diffusion_mms_ale.run(
+            {**base, "ale_map": kind, "output_path": out(f"ale_{kind}")},
+            device=device))
+        assert not any(counts().values()), counts()
+        assert r["converged"] and np.isfinite(r["u"]).all()
+        per_step, other = step_seconds(r["timing"])
+        log(f"phase 10c: diffusion_mms_ale {kind}: {r['fes'].nscalar} DOFs, "
+            f"{len(r['timing'])} steps, run {secs:.2f} s, median "
+            f"{per_step:.4f} s/step ({other:.1%} outside the solves), GMRES "
+            f"iterations per step {r['krylov_iters']}, final L2 "
+            f"{r['final_l2']:.10e} Linf {r['final_linf']:.6e}")
+        ale[kind] = r
+        records.append({
+            "driver": "diffusion_mms_ale", "variant": kind,
+            "dofs": r["fes"].nscalar, "steps": len(r["timing"]),
+            "run_s": secs, "s_per_step": per_step,
+            "share_outside_solve": other,
+            "krylov_iters_per_step": r["krylov_iters"],
+            "l2": r["final_l2"], "linf": r["final_linf"]})
+    reset_counts()
+    static = diffusion_mms.run({**base, "output_path": out("ale_static")},
+                               device=device)
+    assert not any(counts().values()), counts()
+    d_id = float(np.abs(ale["identity"]["u"] - static["u"]).max())
+    l2a = ale["accuracy_a"]["final_l2"]
+    log(f"phase 10c: identity map vs diffusion_mms max|d| = {d_id:.3e} "
+        f"(tol 1e-8); accuracy_a L2 {l2a:.10e} (< 2e-2)")
+    assert d_id <= 1e-8 and 0 < l2a < 2e-2, (d_id, l2a)
+    if refs:
+        d = abs(l2a / JAX_10C_L2 - 1.0)
+        log(f"phase 10c: accuracy_a L2 vs the JAX driver's {JAX_10C_L2!r}: "
+            f"relative difference {d:.3e} (tol 1e-6)")
+        assert d <= 1e-6, d
+
+    # -- 10d. qstar_blowing_1d: jacfwd Jacobian, dense solves
+    reset_counts()
+    r, secs = timed(lambda: qstar_blowing_1d.run(qstar_blowing_1d.QstarParams(
+        num_elements=n_q, verbose=False, output_dir=out("qstar")),
+        device=device))
+    assert not any(counts().values()), counts()
+    log(f"phase 10d: qstar_blowing_1d N={n_q}: run {secs:.3f} s, Newton "
+        f"iterations {r['iterations']}, converged={r['converged']}, sdot "
+        f"{r['sdot']!r}, rel error vs table {r['sdot_rel_error']:.6e}")
+    assert r["converged"] and abs(r["sdot_rel_error"]) < 5e-3
+    if refs:
+        d = abs(r["sdot"] / JAX_10D_SDOT - 1.0)
+        log(f"phase 10d: sdot vs the JAX driver's {JAX_10D_SDOT!r}: relative "
+            f"difference {d:.3e} (tol 1e-10); Newton iterations "
+            f"{r['iterations']} vs {JAX_10D_ITERS}")
+        assert d <= 1e-10 and r["iterations"] == JAX_10D_ITERS, d
+    records.append({
+        "driver": "qstar_blowing_1d", "dofs": n_q, "steps": 1, "run_s": secs,
+        "s_per_step": r["timing"][0]["solve"], "share_outside_solve": 0.0,
+        "newton_iters_per_step": r["iterations"],
+        "sdot": r["sdot"], "sdot_rel_error": r["sdot_rel_error"]})
     return records
 
 
@@ -1123,6 +1323,14 @@ def main():
         drivers = run_drivers(dev, tmp, rel_l2_limit=JAX_9A_REL_L2)
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
+    # -- 10. slice 7: the nonlinear, vector, ALE and Q* drivers --------------
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nonlinear = [{**rec, "card": smi}
+                     for rec in run_nonlinear_drivers(dev, tmp)]
+    t10 = time.perf_counter() - t10
+    log(f"phase 10: {t10:.1f} s (budget 45 s)")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
@@ -1137,6 +1345,7 @@ def main():
         {f"p{o} {n}": v for (o, n), v in sweep.items()}))
     b4_2 = b4[2, False]
     log(json.dumps({"drivers": drivers}))
+    log(json.dumps({"nonlinear_drivers": nonlinear}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,

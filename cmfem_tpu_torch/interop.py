@@ -5,6 +5,8 @@ The JAX package's arrays, taken out with ``np.asarray``, become the port's
 tensors here, so both packages can be made to compute the same thing:
 
 - ``operator_data_from_numpy``: quadrature-point data (d00, d01, d10, d11);
+- ``vector_qp_from_numpy``: the quadrature-point stiffness C (ne, nq, v, d,
+  v, d) of a ``VectorBilinearForm``;
 - ``SumFactoredOperator.from_arrays`` (in ``ops.sumfact``): an operator from
   D and Dz in the lattice layout, the axis matrices and the flags;
 - ``pa_operator_from_arrays``: a PAOperator or StructuredPAOperator from
@@ -41,6 +43,16 @@ def operator_data_from_numpy(d00, d01, d10, d11, *, device,
     """OperatorData from numpy blocks (any of them may be None)."""
     cv = lambda a: None if a is None else _tensor(a, device, dtype)
     return OperatorData(cv(d00), cv(d01), cv(d10), cv(d11))
+
+
+def vector_qp_from_numpy(C, *, device, dtype=torch.float64) -> torch.Tensor:
+    """A ``VectorBilinearForm``'s assembled stiffness C (ne, nq, v, d, v, d)
+    from a numpy array, for ``VectorBilinearForm.apply`` and
+    ``assemble_diagonal``."""
+    C = _tensor(C, device, dtype)
+    if C.ndim != 6 or C.shape[2:4] != C.shape[4:6]:
+        raise ValueError(f"C must be (ne, nq, v, d, v, d), got {tuple(C.shape)}")
+    return C
 
 
 def lattice_index(fes: FESpace, grid: StructuredGrid3D) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Where the time of slices 2, 3 and 6's paths goes, on one GPU.
+"""Where the time of slices 2, 3, 6 and 7's paths goes, on one GPU.
 
     python -m cmfem_tpu_torch.profiling [--n 48] [--out FILE]
                                         [--sections operators,vcycle,...]
@@ -20,7 +20,21 @@ order-2 elements:
   64 x 64 quads refined twice, order 2, float64, dt = 1e-3: the driver is
   run whole for 1 step and for 4 steps, each under the profiler (device
   activity only), and the difference is three steps' wall and device busy
-  time with the set-up taken out; the same with ``scan_stepping``.
+  time with the set-up taken out; the same with ``scan_stepping``;
+- one backward-Euler step of the ``nonlinear_diffusion`` driver (section
+  ``nonlinear``, chip_smoke's phase 10a: 128 x 128 quads of side 0.01,
+  order 2, float64, dt = 0.1): the driver run whole for 1 and for 2 steps,
+  differenced, and its own clock's split of the step; then, on the same
+  form at the step's solution, the residual, the Jacobian diagonal (vmapped
+  jacfwd element Jacobians and their scatter), one JVP by
+  ``torch.func.jvp`` and by ``torch.func.linearize`` (its trace, then one
+  apply) alone, and the step's split into residuals, element Jacobians,
+  linearize traces, JVP applies and the rest of GMRES (host work) from
+  those times and the step's counts;
+- the elasticity driver's 2D default solved 12 times (section
+  ``elasticity_cg``) with the vector forms' fixed-order scatter and with an
+  ``index_add_`` scatter in its place: the CG iterations of each solve and
+  how many stop early.
 
 For each it prints the host wall per repetition (profiled, and unprofiled
 where stated), the device busy time (the sum of the device activities'
@@ -43,7 +57,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import require_cuda
-from .apps import linear_cd_transient
+from .apps import linear_cd_transient, nonlinear_diffusion
 from .core import make_cartesian_mesh_2d, write_gmsh
 from .entry import KAPPA, OPERATORS, operator_paths, vc_entry
 from .ops import BilinearForm
@@ -189,8 +203,136 @@ def profile_driver(n, dev, rng, out, n_quads=64, ref=2):
                 f"{sum(r['arnoldi']) / 4:.0f}")
 
 
+def profile_nonlinear(n, dev, rng, out, n_quads=128):
+    """One step of the nonlinear_diffusion driver and its AD pieces alone."""
+    import warnings
+
+    from .core import FESpace
+    from .ops import SpaceOps
+    from .ops.nonlinear import NonlinearForm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = write_gmsh(make_cartesian_mesh_2d(n_quads, n_quads, sx=0.01,
+                                                 sy=0.01),
+                          os.path.join(tmp, "square.msh"))
+        cfg = {"mesh_file": mesh, "order": 2, "dt": 0.1, "L": 0.01,
+               "series_terms": 400, "save_paraview": False,
+               "newton_print_level": 0,
+               "output_path": os.path.join(tmp, "out")}
+        run = lambda steps: nonlinear_diffusion.run(
+            {**cfg, "t_final": steps * 0.1}, device=dev)
+        run(1)  # warm: the AD transforms' first use, handles, allocator
+        w1, b1, _ = device_busy(lambda: run(1))
+        w2, b2, r = device_busy(lambda: run(2))
+    wall, busy = w2 - w1, b2 - b1
+    step = r["timing"][1]
+    newton = r["newton_iters"][1]
+    gmres_its = r["krylov_iters"][1]
+    out(f"== nonlinear_diffusion ({r['fes'].nscalar} DOFs, f64) step 2: "
+        f"wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f}; {newton} Newton iterations, GMRES "
+        f"iterations {gmres_its}; whole runs {w1:.0f} ms (1 step) and "
+        f"{w2:.0f} ms (2 steps); the driver's own clock, ms: "
+        + ", ".join(f"{k} {1e3 * v:.1f}" for k, v in step.items()))
+
+    # the pieces alone, on the same form at the step's solution
+    fes = FESpace(make_cartesian_mesh_2d(n_quads, n_quads, sx=0.01,
+                                         sy=0.01), 2)
+    ops = SpaceOps(fes, device=dev)
+    nlf = NonlinearForm(ops, nonlinear_diffusion.heat_qp_residual(
+        8000.0 * 500.0, 8000.0 * 4.5, 10.0, 0.09, 300.0, 0.1))
+    u = torch.as_tensor(r["u"], device=dev)
+    aux = {"u_old_q": ops.values_at_qp(u)}
+    v = torch.as_tensor(rng.standard_normal(fes.nscalar), device=dev)
+
+    def piece(label, fn, reps, top=6):
+        """(unprofiled host ms, profiled device busy ms) of one call."""
+        ms = host_ms(fn, reps=reps, warmup=2)
+        _, busy = profiled(label, fn, reps, out, top=top)
+        out(f"   {label}: unprofiled {ms:.3f} ms per call (host clock, "
+            "device synchronized)")
+        return ms, busy
+
+    res_ms, res_busy = piece("residual", lambda: nlf.residual(u, **aux), 20,
+                             top=4)
+    jac_ms, jac_busy = piece(
+        "Jacobian diagonal (vmap(jacfwd) element Jacobians + scatter)",
+        lambda: nlf.jacobian_diagonal(u, **aux), 10)
+    jvp_ms, jvp_busy = piece("JVP by torch.func.jvp",
+                             lambda: nlf.jvp(u, v, **aux), 20)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # const_fold's get_attr notes
+        lin_ms, _ = piece("torch.func.linearize (trace at one iterate)",
+                          lambda: nlf.linearize(u, **aux), 3, top=4)
+        _, lin_fn = nlf.linearize(u, **aux)
+    lapp_ms, lapp_busy = piece("one apply of linearize's JVP",
+                               lambda: lin_fn(v), 20)
+    # the driver: per Newton iterate a residual, a Jacobian diagonal and a
+    # linearize trace; per GMRES iteration one apply of the traced JVP (and
+    # two per restart cycle's explicit residual, counted at two per solve)
+    n_jvp = sum(gmres_its) + 2 * len(gmres_its)
+    split = {"residuals": (newton + 1) * res_ms,
+             "element Jacobians": newton * jac_ms,
+             "linearize traces": newton * lin_ms,
+             "JVP applies": n_jvp * lapp_ms}
+    split["GMRES host work and the rest"] = wall - sum(split.values())
+    out(f"== step 2 split (ms, from the times alone x counts: {newton + 1} "
+        f"residuals, {newton} Jacobian diagonals and linearize traces, "
+        f"{n_jvp} JVP applies): "
+        + ", ".join(f"{k} {v:.1f} ({v / wall:.1%})" for k, v in split.items())
+        + f"; device busy of the JVP applies {n_jvp * lapp_busy:.1f} ms, of "
+        f"the Jacobians {newton * jac_busy:.1f} ms")
+    per_newton = n_jvp / max(1, newton)
+    out(f"== JVP choice at this step's {per_newton:.1f} JVPs per Newton "
+        f"iteration: torch.func.jvp {per_newton * jvp_ms:.1f} ms per Newton "
+        f"iteration, linearize {lin_ms + per_newton * lapp_ms:.1f} ms (trace "
+        f"{lin_ms:.1f} + {lapp_ms:.3f} per apply; even at "
+        f"{lin_ms / max(1e-9, jvp_ms - lapp_ms):.0f} JVPs); device busy per "
+        f"JVP {jvp_busy:.3f} against {lapp_busy:.3f} ms")
+
+
+def profile_elasticity_cg(n, dev, rng, out, reps=12):
+    """The elasticity driver's 2D default solved ``reps`` times with the
+    vector forms' fixed-order scatter, then with an ``index_add_`` scatter
+    (atomics on the GPU) in its place: how often Jacobi-CG stops early."""
+    from .apps import elasticity
+    from .ops import vector
+
+    fixed = vector._scatter_components
+
+    def atomic(y_e, slots):
+        v, numel = y_e.shape[-1], y_e.shape[0] * y_e.shape[1]
+        rows = torch.arange(slots.shape[0], device=slots.device)
+        valid = slots < numel
+        dof = torch.empty(numel, dtype=torch.int64, device=slots.device)
+        dof[slots[valid]] = rows[:, None].expand_as(slots)[valid]
+        out_ = y_e.new_zeros((slots.shape[0], v))
+        return out_.index_add_(0, dof, y_e.reshape(-1, v)).T.reshape(-1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, scatter in (("fixed-order scatter", fixed),
+                              ("index_add_ scatter", atomic)):
+            vector._scatter_components = scatter
+            runs = []
+            try:
+                for _ in range(reps):
+                    try:
+                        r = elasticity.run({"dim": 2, "save_paraview": False,
+                                            "output_path": tmp}, device=dev)
+                        runs.append(f"{r['iters']} ({r['solve'].rel_residual:.2e})")
+                    except RuntimeError as e:
+                        runs.append("stopped: " + str(e).split(" — ")[0])
+            finally:
+                vector._scatter_components = fixed
+            stops = sum(r.startswith("stopped") for r in runs)
+            out(f"== elasticity 2D default, {name}: {stops} of {reps} solves "
+                f"stopped early; CG iterations (final rel residual): {runs}")
+
+
 SECTIONS = {"operators": profile_operators, "vcycle": profile_vcycle,
-            "zchain": profile_zchain, "driver": profile_driver}
+            "zchain": profile_zchain, "driver": profile_driver,
+            "nonlinear": profile_nonlinear,
+            "elasticity_cg": profile_elasticity_cg}
 
 
 def main(argv=None):

@@ -45,7 +45,14 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.apps.diffusion_mms",
             "cmfem_tpu_torch.apps.linear_cd_2d",
             "cmfem_tpu_torch.apps.linear_cd_2d_circle",
-            "cmfem_tpu_torch.apps.linear_cd_transient"} <= set(mods)
+            "cmfem_tpu_torch.apps.linear_cd_transient",
+            "cmfem_tpu_torch.physics.exact_solutions",
+            "cmfem_tpu_torch.ops.nonlinear", "cmfem_tpu_torch.ops.faces",
+            "cmfem_tpu_torch.ops.vector", "cmfem_tpu_torch.motion.ale",
+            "cmfem_tpu_torch.apps.nonlinear_diffusion",
+            "cmfem_tpu_torch.apps.elasticity",
+            "cmfem_tpu_torch.apps.diffusion_mms_ale",
+            "cmfem_tpu_torch.apps.qstar_blowing_1d"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
