@@ -83,7 +83,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. slice 6, the application drivers through ``run(cfg)`` on the card, in
      float64, on GMSH files written here: (a) ``linear_cd_transient`` on
      64 x 64 quads refined twice (65,536 elements, order 2, 263,169 DOFs,
-     three Peclet cases), dt = 1e-3, 5 backward-Euler steps with
+     three Peclet cases), dt = 1e-3, 3 backward-Euler steps with
      Jacobi-GMRES in the host loop and again with ``scan_stepping``: every
      solve converges, the two CSVs agree to 1e-10, the relative L2 errors
      are finite and no larger than the JAX driver's on this mesh (times
@@ -98,7 +98,7 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. slice 7, the nonlinear, vector, ALE and Q* drivers through ``run``,
      float64 (``run_nonlinear_drivers``, sizes as arguments): (a)
      ``nonlinear_diffusion`` on 128 x 128 quads of side 0.01, order 2
-     (66,049 DOFs), dt 0.1, 3 backward-Euler steps of full Newton (AD
+     (66,049 DOFs), dt 0.1, 2 backward-Euler steps of full Newton (AD
      element Jacobians for the Jacobi diagonal, GMRES on the AD JVP): every
      Newton solve converges, rel L2 < 2e-2 and equal to the JAX driver's to
      1e-6 relative, equal Newton counts; (b) ``elasticity``, the 2D default
@@ -112,15 +112,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      |sdot error| < 5e-3, sdot equal to the JAX driver's to 1e-10 relative,
      equal Newton count.  No kernel lies on these paths; no launch count
      moves.
+ 11. slice 8, ablation case 1 through ``run(cfg)``, float64
+     (``run_ablation_case1``, sizes as arguments), on the TACOT strip
+     (``make_strip_mesh_2d``: 11 x 239 order-1 quads graded toward the
+     heated top, 2.5 mm x 0.05 m, 5,760 (T, p) DOFs) with the synthetic deck
+     ``tests/fixtures/tacot_synthetic.json`` (read without PyYAML), dt 0.1,
+     the default wall schedule: (a) 10 steps through the host LU (AD
+     Jacobians on the card, scipy ``splu``): every Newton solve converges,
+     the last probe temperatures, m_dot_g and the two front depths equal the
+     JAX driver's to 1e-7 relative with equal Newton counts; (b) the same run
+     with ``scan_stepping`` (``BlockTridiagDirect`` on the card): its CSVs
+     agree with (a)'s to 1e-8; (c) point-block GMRES(400) at rtol 1e-12 on
+     the first Newton system of step 1, through ``make_block_linear_solver``:
+     converged, its direction equal to the host LU's to 1e-8, its iterations
+     and seconds printed; (d) the strip refined twice (86,130 DOFs) through
+     ``scan_stepping``, 2 steps: seconds per step with the Newton split, the
+     factorization's and the solve's ms per call, peak device memory, and
+     the residual through the generic and the lattice path in turns (equal
+     to 1e-12).  No kernel lies on this path; no launch count moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
 sum-factorization kernel also ``earlier_ms``, the colour design's time in
-the same run), before it the drivers' JSON records (phase 9's and phase
-10's: DOFs, steps, seconds per step, Newton and Krylov iterations, errors;
-phase 10's with the card), then the card's name and power limit, and
+the same run), before it the drivers' JSON records (phase 9's, phase 10's
+and phase 11's: DOFs, steps, seconds per step, Newton and Krylov
+iterations, errors; phases 10 and 11 with the card), then the card's name
+and power limit, and
 {"ok": true,
 "device": {...}}.  Imports no JAX.
 """
@@ -406,7 +425,7 @@ def check_step(step, u0, arrays, label, fn=None, floor_ok=False):
 
 
 # relative L2 errors of the JAX driver (cmfem_tpu.apps.linear_cd_transient,
-# float64 on a CPU) after 5 backward-Euler steps of dt = 1e-3 on the 9a mesh,
+# float64 on a CPU) after 3 backward-Euler steps of dt = 1e-3 on the 9a mesh,
 # Peclet 1, 10, 100: the level the port's errors are held to.  They are
 # columns rel_l2_pe1..3 of the last row of out/error_history.csv after
 #   python -c "from cmfem_tpu_torch.core.mesh import make_cartesian_mesh_2d,
@@ -414,10 +433,10 @@ def check_step(step, u0, arrays, label, fn=None, floor_ok=False):
 #              'quads.msh')"
 #   CMFEM_FORCE_CPU=1 python -m cmfem_tpu.apps.linear_cd_transient -i cfg.yaml
 # with cfg.yaml holding mesh_file: quads.msh, serial_ref_levels: 2, order: 2,
-# dt: 1.0e-3, t_final: 5.0e-3, save_paraview: false, output_path: out
-# (about five minutes on a CPU).
-JAX_9A_REL_L2 = (0.027785646940431372, 0.03062068928657793,
-                 0.040363822834497944)
+# dt: 1.0e-3, t_final: 3.0e-3, save_paraview: false, output_path: out
+# (about three minutes on a CPU).
+JAX_9A_REL_L2 = (0.04190079046776633, 0.0451684941519411,
+                 0.05610489416181405)
 
 
 def read_csv(path):
@@ -435,7 +454,7 @@ def step_seconds(timing):
     return total, 1.0 - solve / total
 
 
-def run_drivers(device, tmp, n_cd=64, ref_cd=2, n_tri=32, steps=5,
+def run_drivers(device, tmp, n_cd=64, ref_cd=2, n_tri=32, steps=3,
                 rel_l2_limit=None):
     """Phase 9: the four application drivers through ``run(cfg)``; returns
     the ``drivers`` record.  The sizes are arguments so that the control
@@ -571,24 +590,24 @@ def run_drivers(device, tmp, n_cd=64, ref_cd=2, n_tri=32, steps=5,
 #   python -m cmfem_tpu.apps.diffusion_mms_ale -i ale.yaml
 #   python -m cmfem_tpu.apps.qstar_blowing_1d --num-elements 512 --quiet
 #          --output-dir out_q
-# nl.yaml: mesh_file: square_0p01.msh, order: 2, dt: 0.1, t_final: 0.3,
+# nl.yaml: mesh_file: square_0p01.msh, order: 2, dt: 0.1, t_final: 0.2,
 # L: 0.01, series_terms: 400, save_paraview: false, newton_print_level: 0,
 # output_path: out_nl (10a: the last row's rel_l2 and the newton_iters
-# column of error_history_nonlinear_1D.csv; about two minutes);
+# column of error_history_nonlinear_1D.csv; about a minute and a half);
 # ale.yaml: mesh_file: tris.msh, serial_ref_levels: 1, order: 1,
 # alpha: 0.1, dt: 0.05, t_final: 0.15, ale_map: accuracy_a,
 # save_paraview: false, output_path: out_ale (10c: the last row's l2_error
 # of error_history.csv); 10d: sdot_numerical_m_s of
 # out_q/qstar_blowing_summary.csv and the printed Newton iterations.
-JAX_10A_REL_L2 = 0.002946592118578706
-JAX_10A_NEWTON = [4, 4, 3]
+JAX_10A_REL_L2 = 0.003061296905842773
+JAX_10A_NEWTON = [4, 4]
 JAX_10C_L2 = 0.005247881677260601
 JAX_10D_SDOT = 3.9971577446211632e-04
 JAX_10D_ITERS = 3
 
 
 def run_nonlinear_drivers(device, tmp, n_nl=128, n_ale=64, n_q=512,
-                          beam3d=(40, 4, 4), steps=3, refs=True):
+                          beam3d=(40, 4, 4), steps=3, steps_nl=2, refs=True):
     """Phase 10: the slice-7 drivers through ``run(cfg)`` (``run(p)`` for
     Q*), float64; returns the ``nonlinear_drivers`` record.  The sizes are
     arguments so that the control flow can be rehearsed small on a CPU;
@@ -601,7 +620,7 @@ def run_nonlinear_drivers(device, tmp, n_nl=128, n_ale=64, n_q=512,
     # -- 10a. nonlinear_diffusion: BE + Newton, AD JVP and element Jacobians
     sq = mesh("square_0p01.msh", make_cartesian_mesh_2d(n_nl, n_nl, sx=0.01,
                                                          sy=0.01))
-    cfg = {"mesh_file": sq, "order": 2, "dt": 0.1, "t_final": steps * 0.1,
+    cfg = {"mesh_file": sq, "order": 2, "dt": 0.1, "t_final": steps_nl * 0.1,
            "L": 0.01, "series_terms": 400, "save_paraview": False,
            "newton_print_level": 0, "output_path": out("nl")}
     reset_counts()
@@ -737,6 +756,241 @@ def run_nonlinear_drivers(device, tmp, n_nl=128, n_ale=64, n_q=512,
         "newton_iters_per_step": r["iterations"],
         "sdot": r["sdot"], "sdot_rel_error": r["sdot_rel_error"]})
     return records
+
+
+# figures of the JAX driver (cmfem_tpu.apps.ablation_case1, float64 on a
+# CPU) on phase 11's strip and deck after 10 steps of dt 0.1: the last rows
+# of out_c1/temperature_probes.csv (TC1..TC7) and out_c1/mass_metrics.csv
+# (m_dot_g_surf, front_98_virgin, front_2_char) and the linear solves per
+# step (rows per step of the Newton CSV, less one), from, in a scratch
+# directory with PYTHONPATH at the repo and CMFEM_FORCE_CPU=1:
+#   python -c "from cmfem_tpu_torch.core.mesh import make_strip_mesh_2d,
+#              write_gmsh; write_gmsh(make_strip_mesh_2d(11, 239),
+#              'strip.msh')"
+#   python -m cmfem_tpu.apps.ablation_case1 -i case1.yaml
+# case1.yaml: mesh_file: strip.msh, material_file: <the repo's
+# tests/fixtures/tacot_synthetic.json>, order: 1, dt: 0.1, t_final: 1.0,
+# bdr_attr_top: 3, probe_x: 0.00125, newton_print_level: 0, save_paraview:
+# false, output_path: out_c1 (about 40 s).
+JAX_11A_PROBES = (1086.15727425637, 651.259838276897, 337.6568871383802,
+                  300.0841697056645, 300.0015950790275, 300.0015424898872,
+                  300.0015421583108)
+JAX_11A_MDOT = 0.03997015920668535
+JAX_11A_FRONTS = (0.001672498399892794, 0.0)
+JAX_11A_NEWTON = [4, 3, 3, 3, 3, 3, 3, 3, 3, 3]
+TACOT_DECK = os.path.join(ROOT, "tests", "fixtures", "tacot_synthetic.json")
+
+
+def csv_agree(path_a, path_b, rtol):
+    """max over the CSV's values of |a - b| / (rtol |b| + 1e-12 max|b| of
+    the column): <= 1 when they agree to ``rtol`` (the floor takes the
+    roundoff of values that are zero in one run, as the t = 0 mass flux)."""
+    _, a = read_csv(path_a)
+    _, b = read_csv(path_b)
+    assert a.shape == b.shape, (path_a, a.shape, b.shape)
+    floor = 1e-12 * np.abs(b).max(axis=0)
+    return float(np.max(np.abs(a - b) / (rtol * np.abs(b) + floor + 1e-300)))
+
+
+def split_median(timing, keys=("residual", "jacobian", "factorization",
+                               "linear", "update", "state", "output")):
+    return {k: statistics.median(t.get(k, 0.0) for t in timing) for k in keys}
+
+
+def run_ablation_case1(device, tmp, nx=11, ny=239, steps=10, ref_levels=2,
+                       ref_steps=2, refs=True):
+    """Phase 11: the case-1 ablation driver through ``run(cfg)`` on the
+    graded TACOT strip (``make_strip_mesh_2d``) with the synthetic deck,
+    float64; returns the ``ablation_case1`` record.  The sizes are arguments
+    so that the control flow can be rehearsed small on a CPU; ``refs``
+    holds (a) to the JAX driver's figures above, which belong to the default
+    sizes only."""
+    from cmfem_tpu_torch.apps import ablation_case1
+    from cmfem_tpu_torch.apps.common import make_block_linear_solver
+    from cmfem_tpu_torch.core import make_strip_mesh_2d
+
+    strip = write_gmsh(make_strip_mesh_2d(nx, ny), os.path.join(tmp,
+                                                                "strip.msh"))
+    out = lambda name: os.path.join(tmp, name)
+    base = {"mesh_file": strip, "material_file": TACOT_DECK, "order": 1,
+            "dt": 0.1, "t_final": steps * 0.1, "bdr_attr_top": 3,
+            "probe_x": 0.00125, "newton_print_level": 0,
+            "save_paraview": False, "output_every": 5}
+    records = []
+
+    def drive(label, cfg):
+        reset_counts()
+        r, secs = timed(lambda: ablation_case1.run(cfg, device=device))
+        assert not any(counts().values()), counts()
+        assert r["converged"] and np.isfinite(r["T"]).all()
+        per_step = statistics.median(t["total"] for t in r["timing"])
+        split = split_median(r["timing"])
+        log(f"phase 11{label}: {2 * r['fes'].nscalar} DOFs, "
+            f"{len(r['timing'])} steps, run {secs:.2f} s, median "
+            f"{per_step:.4f} s/step; Newton split (median s/step): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; linear solves per step {r['newton_iters']}"
+            + (f", Krylov iterations per solve {r['krylov_iters']}"
+               if "krylov_iters" in r else ""))
+        return r, secs, per_step, split
+
+    # -- 11a. the eager path: AD Jacobians on the card, host splu
+    ra, secs, per_step, split = drive(
+        "a host LU", {**base, "output_path": out("c1_lu")})
+    _, probes = read_csv(os.path.join(out("c1_lu"), "temperature_probes.csv"))
+    _, mass = read_csv(os.path.join(out("c1_lu"), "mass_metrics.csv"))
+    final = {"probes": [float(v) for v in probes[-1, 2:]],
+             "m_dot_g": float(mass[-1, 1]),
+             "fronts": [float(mass[-1, 3]), float(mass[-1, 4])]}
+    log(f"phase 11a: t = {probes[-1, 0]:.3f}: probes {final['probes']}, "
+        f"m_dot_g {final['m_dot_g']!r}, fronts 98%/2% {final['fronts']}")
+    if refs:
+        got = final["probes"] + [final["m_dot_g"]] + final["fronts"]
+        ref = list(JAX_11A_PROBES) + [JAX_11A_MDOT] + list(JAX_11A_FRONTS)
+        d = max(abs(a - b) / abs(b) if b else abs(a)
+                for a, b in zip(got, ref))
+        log(f"phase 11a: vs the JAX driver's figures: max relative "
+            f"difference {d:.3e} (tol 1e-7); linear solves per step "
+            f"{ra['newton_iters']} vs {JAX_11A_NEWTON}")
+        assert d <= 1e-7 and ra["newton_iters"] == JAX_11A_NEWTON, d
+    records.append({
+        "driver": "ablation_case1", "variant": "host LU (splu)",
+        "dofs": 2 * ra["fes"].nscalar, "steps": len(ra["timing"]),
+        "run_s": secs, "s_per_step": per_step, "newton_split_s": split,
+        "newton_iters_per_step": ra["newton_iters"], **final})
+
+    # -- 11b. scan_stepping: the block-QR direct solver on the card
+    rb, secs, per_step, split = drive(
+        "b scan_stepping", {**base, "scan_stepping": True,
+                            "output_path": out("c1_scan")})
+    d_csv = max(csv_agree(os.path.join(out("c1_scan"), name),
+                          os.path.join(out("c1_lu"), name), 1e-8)
+                for name in ("temperature_probes.csv", "mass_metrics.csv"))
+    log(f"phase 11b: linear solver {rb['linear_solver']}; CSVs vs 11a: "
+        f"max |d| / (1e-8 |a| + floor) = {d_csv:.3f} (<= 1)")
+    assert rb["linear_solver"] == "BlockTridiagDirect"
+    assert d_csv <= 1.0 and rb["newton_iters"] == ra["newton_iters"], d_csv
+    records.append({
+        "driver": "ablation_case1", "variant": "scan_stepping (block QR)",
+        "dofs": 2 * rb["fes"].nscalar, "steps": len(rb["timing"]),
+        "run_s": secs, "s_per_step": per_step, "newton_split_s": split,
+        "newton_iters_per_step": rb["newton_iters"],
+        "krylov_iters_per_solve": rb["krylov_iters"],
+        "csv_vs_host_lu": d_csv})
+
+    # -- 11c. linear_solver: gmres on the first Newton system of step 1, at
+    # linear_rtol 1e-12: at the driver's 1e-10 the preconditioned residual
+    # leaves ~4e-5 of the LU direction in this ill-conditioned system (CPU,
+    # same system), at 1e-12 ~6e-9
+    reset_counts()
+    cfg = {**base, "linear_solver": "gmres", "linear_rtol": 1e-12,
+           "output_path": out("c1_gm")}
+    c = ablation_case1.Case1(cfg, device, torch.float64)
+    T, p = c.initial_fields()
+    X = c.initial_state().extent
+    To, po = c.ops.values_at_qp(T), c.ops.values_at_qp(p)
+    T, p = c.enforce_bc(T, p, ablation_case1.evaluate_schedule(c.schedule,
+                                                               c.dt))
+    R = c.residual(T, p, To, po, X, c.dt)
+    blocks = c.sys.element_jacobians(T, p, To, po, X, c.dt)
+    d_lu = c.host_lu(blocks).solve(-R)
+    factory = make_block_linear_solver(cfg, c.fes.element_dofs, c.n, c.ess,
+                                       c.ess, node_positions=c.fes.node_positions,
+                                       device=device)
+    d_gm, gm_s = timed(lambda: factory(blocks).solve(-R))
+    res = factory.results[-1]
+    c.finish({k: 0.0 for k in ablation_case1.TIMING_KEYS
+              + ("newton", "total")}, 0.0)
+    assert not any(counts().values()), counts()
+    d_dir = rel2(d_gm, d_lu)
+    log(f"phase 11c: point-block GMRES(400), rtol 1e-12, on the first Newton "
+        f"system of step 1: converged={res.converged}, {res.inner_iters} inner "
+        f"iterations ({res.iters} cycles; JAX records 299-358 at refine 0 "
+        f"on the reference deck), {gm_s:.3f} s ({1e3 * gm_s / max(1, res.inner_iters):.2f} "
+        f"ms per iteration); direction vs the host LU's, 2-norm rel "
+        f"{d_dir:.3e} (tol 1e-8)")
+    assert res.converged and d_dir <= 1e-8, d_dir
+    records.append({
+        "driver": "ablation_case1",
+        "variant": "gmres (rtol 1e-12), one Newton system",
+        "dofs": 2 * c.n, "krylov_iters": res.inner_iters,
+        "restart_cycles": res.iters, "solve_s": gm_s,
+        "direction_vs_lu": d_dir})
+    del c, blocks, factory, R, d_lu, d_gm
+
+    # -- 11d. the strip refined twice through scan_stepping
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rd, secs, per_step, split = drive(
+        "d refined", {**base, "serial_ref_levels": ref_levels,
+                      "t_final": ref_steps * 0.1, "scan_stepping": True,
+                      "output_path": out("c1_ref")})
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if torch.device(device).type == "cuda" else float("nan"))
+    solves = sum(rd["newton_iters"])
+    fac_ms = 1e3 * sum(t["factorization"] for t in rd["timing"]) / solves
+    sol_ms = 1e3 * sum(t["linear"] for t in rd["timing"]) / solves
+    jac_ms = 1e3 * sum(t["jacobian"] for t in rd["timing"]) / solves
+    res_ms = ablation_residual_in_turns(device, rd)
+    log(f"phase 11d: per Newton solve: element Jacobians {jac_ms:.1f} ms, "
+        f"block-QR factorization {fac_ms:.1f} ms, banded solve with its "
+        f"GMRES {sol_ms:.1f} ms; peak device memory {peak:.3f} GiB; "
+        f"residual ms (CUDA events, generic, lattice, lattice, generic): "
+        f"{res_ms}")
+    records.append({
+        "driver": "ablation_case1", "variant": "scan_stepping, refined x2",
+        "dofs": 2 * rd["fes"].nscalar, "steps": len(rd["timing"]),
+        "run_s": secs, "s_per_step": per_step, "newton_split_s": split,
+        "newton_iters_per_step": rd["newton_iters"],
+        "krylov_iters_per_solve": rd["krylov_iters"],
+        "jacobian_ms_per_solve": jac_ms, "factorization_ms_per_call": fac_ms,
+        "solve_ms_per_call": sol_ms, "peak_mem_gib": peak,
+        "residual_ms": res_ms})
+    return records
+
+
+def ablation_residual_in_turns(device, r):
+    """The case-1 residual at a run's final state, through the generic path
+    (gather, index_add_) and the lattice path (strided windows), in turns
+    (generic, lattice, lattice, generic), median ms of one call between
+    CUDA events (host clock with the device synchronized on a CPU); the two
+    agree to 1e-12.  The refined strip's elements are renumbered row-major
+    (order-1 DOFs are the vertices, so the fields keep their numbering)."""
+    from cmfem_tpu_torch.core import FESpace
+    from cmfem_tpu_torch.ops import SpaceOps
+    from cmfem_tpu_torch.ops.lattice2d import (
+        reorder_mesh_elements, strip_element_order)
+    from cmfem_tpu_torch.physics.ablation import AblationSystem
+    from cmfem_tpu_torch.physics.tacot import TacotMaterial
+    from cmfem_tpu_torch.solvers.blocksolve import strip_dof_lattice
+
+    order = strip_element_order(r["mesh"])
+    fes = FESpace(reorder_mesh_elements(r["mesh"], order), 1)
+    sys_ = AblationSystem(SpaceOps(fes, quad_order=4, device=device),
+                          TacotMaterial.load_yaml(TACOT_DECK), top_attr=3)
+    T = torch.as_tensor(r["T"], device=device)
+    p = torch.as_tensor(r["p"], device=device)
+    X = r["state"].extent[torch.as_tensor(order, device=device)]
+    args = (T, p, sys_.ops.values_at_qp(T - 1.0), sys_.ops.values_at_qp(p),
+            X, 0.1)
+    windows = {"generic": None,
+               "lattice": sys_.set_dof_lattice(
+                   strip_dof_lattice(fes.node_positions))}
+
+    def call(path):
+        sys_.lat = windows[path]
+        return sys_.residual(*args)
+
+    for a, b in zip(call("generic"), call("lattice")):
+        assert rel_err(b, a) <= 1e-12, rel_err(b, a)
+    cuda = torch.device(device).type == "cuda"
+    paths = {}
+    for path in ("generic", "lattice", "lattice", "generic"):
+        fn = lambda: call(path)
+        paths.setdefault(path, []).append(
+            median_ms(fn, reps=10, warmup=2) if cuda
+            else 1e3 * timed(fn)[1])
+    return paths
 
 
 def main():
@@ -1331,6 +1585,13 @@ def main():
     t10 = time.perf_counter() - t10
     log(f"phase 10: {t10:.1f} s (budget 45 s)")
 
+    # -- 11. slice 8: the charring-ablator case 1 ----------------------------
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ablation = [{**rec, "card": smi}
+                    for rec in run_ablation_case1(dev, tmp)]
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s (budget 45 s)")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
@@ -1346,6 +1607,7 @@ def main():
     b4_2 = b4[2, False]
     log(json.dumps({"drivers": drivers}))
     log(json.dumps({"nonlinear_drivers": nonlinear}))
+    log(json.dumps({"ablation_case1": ablation}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,

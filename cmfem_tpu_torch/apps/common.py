@@ -1,13 +1,14 @@
 """Shared app-driver scaffolding: CLI, device choice, mesh setup, config echo.
 
-Port of the linear half of ``cmfem_tpu/apps/common.py``.  Each app mirrors
-one reference driver: parse `-i input.yaml`, echo config, build mesh/space,
-run, write CSV + ParaView.  A driver's ``run(cfg, device=None)`` runs on the
-CUDA device and raises without one; ``device="cpu"``, or ``CMFEM_FORCE_CPU=1``
-for ``main()``, asks for the CPU.  The drivers default to float64 (native
-on the GPU), so the decks' tolerances (``solver_rtol: 1e-12``) are
-reachable; the float32-floor acceptance of ``check_standalone_linear`` stays
-for a caller who passes ``dtype=torch.float32``."""
+Port of ``cmfem_tpu/apps/common.py`` but ``moving_mesh_and_ale_toggles``
+(ablation case 2.2).  Each app mirrors one reference driver: parse
+`-i input.yaml`, echo config, build mesh/space, run, write CSV + ParaView.
+A driver's ``run(cfg, device=None)`` runs on the CUDA device and raises
+without one; ``device="cpu"``, or ``CMFEM_FORCE_CPU=1`` for ``main()``,
+asks for the CPU.  The drivers default to float64 (native on the GPU), so
+the decks' tolerances (``solver_rtol: 1e-12``) are reachable; the
+float32-floor acceptance of ``check_standalone_linear`` stays for a caller
+who passes ``dtype=torch.float32``."""
 
 from __future__ import annotations
 
@@ -269,3 +270,324 @@ def load_newton_config(cfg: dict, *, abs_tol=1e-8, rel_tol=1e-6,
         stall_dx_rtol=cfg.get("newton_stall_dx_rtol", None),
         stall_flat_factor=float(cfg.get("newton_stall_flat_factor", 1.15)),
     )
+
+
+# -- the ablation half: Newton loops and the block linear solvers -----------
+
+def device_sync(device):
+    """A callable that waits for ``device`` (nothing on the CPU), for
+    ``StepTimer(sync=...)`` and the Newton loop's update timing."""
+    if torch.device(device).type == "cuda":
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None
+
+
+def scan_newton(T, p, *, residual, solve, abs_tol, rel_tol, max_iter,
+                stall_improve=1e-3, stall_patience=2,
+                stall_accept_rel=1e-3, stall_dx_rtol=None,
+                stall_flat_factor=1.15):
+    """The device-resident Newton loop of the ablation scan paths (the
+    JAX package's ``lax.while_loop``, here a host loop over device tensors
+    that reads back one scalar per iteration: whether it is done).
+
+    ``residual(T, p) -> R`` (BC-masked stacked residual) and
+    ``solve(T, p, R) -> (T_new, p_new, |dx|, lin_ok)`` close over the
+    step's frozen inputs.  Reference semantics — r0 = max(1, |R0|),
+    abs/rel tolerance, at most ``max_iter`` residual checks/solves — plus
+    the working-precision stall exits of ``NewtonConfig`` (patience
+    ``stall_patience`` non-improving residuals, then any of: rn/r0 <
+    stall_accept_rel; |dx| <= stall_dx_rtol |[T;p]| (default 30 eps); the
+    residual flat within ``stall_flat_factor`` of its best over the window
+    with every linear solve usable).  A diverging solve never stall-exits:
+    it runs to max_iter and reports done=False.
+
+    Returns (T, p, iters, r0, rn, done, res_history, update_history,
+    linear_ok, stalled) with NaN-padded (max_iter + 1,) device histories for
+    the newton CSV replay; ``iters`` counts residual checks (one more than
+    the linear solves when done)."""
+    dev, dtype = T.device, T.dtype
+    if stall_dx_rtol is None:
+        stall_dx_rtol = 30.0 * float(torch.finfo(dtype).eps)
+    flat_enabled = float(stall_flat_factor) > 1.0
+    scal = lambda v: torch.tensor(v, dtype=dtype, device=dev)
+    res_h = torch.full((max_iter + 1,), float("nan"), dtype=dtype, device=dev)
+    upd_h = res_h.clone()
+    inf = float("inf")
+    r0, rn, rbest, rmax, un_prev = scal(1.0), scal(inf), scal(inf), \
+        scal(inf), scal(inf)
+    noimp = torch.zeros((), dtype=torch.int64, device=dev)
+    was_stalled = torch.zeros((), dtype=torch.bool, device=dev)
+    lin_ok = True
+    done = False
+    it = 0
+    while it < max_iter:
+        R = residual(T, p)
+        rn = torch.linalg.vector_norm(R)
+        if it == 0:
+            r0 = torch.clamp(rn, min=1.0)
+        rbest_pre = rbest
+        improved = rn < (1.0 - stall_improve) * rbest
+        noimp = torch.where(improved, 0, noimp + 1)
+        # max residual over the current non-improving window
+        rmax = torch.where(improved, rn, torch.maximum(rmax, rn))
+        rbest = torch.minimum(rbest, rn)
+        xnorm = torch.sqrt(torch.sum(T * T) + torch.sum(p * p))
+        flat_ok = (rmax <= stall_flat_factor * rbest_pre) & lin_ok \
+            if flat_enabled else False
+        stalled = (noimp >= stall_patience) & (
+            (rn / r0 < stall_accept_rel)
+            | (un_prev <= stall_dx_rtol * xnorm) | flat_ok)
+        tol_done = (rn < abs_tol) | (rn / r0 < rel_tol)
+        was_stalled = was_stalled | (stalled & ~tol_done)
+        res_h[it] = rn
+        it += 1
+        if bool(tol_done | stalled):
+            done = True
+            break
+        T, p, un, ok = solve(T, p, R)
+        upd_h[it - 1] = un
+        lin_ok = lin_ok and bool(ok)
+        un_prev = un
+    return T, p, it, r0, rn, done, res_h, upd_h, lin_ok, was_stalled
+
+
+def replay_newton_history(newton_csv, gstep, tk, nit, r0k, res_h, upd_h):
+    """Replay one scan step's recorded Newton iterate history into the
+    newton CSV (NaN marks unused history slots)."""
+    du0 = max(1.0, float(upd_h[0])) if np.isfinite(upd_h[0]) else 1.0
+    for i in range(nit + 1):
+        rk = res_h[i]
+        if not np.isfinite(rk):
+            break
+        uk = upd_h[i]
+        conv = 1 if (i == nit or not np.isfinite(uk)) else 0
+        un = 0.0 if not np.isfinite(uk) else float(uk)
+        newton_csv.writerow([gstep, tk, i, float(rk), r0k,
+                             float(rk) / r0k, un, du0, un / du0, conv])
+
+
+class NewtonStallStats:
+    """Accumulates per-step Newton stall-exit statistics: how many steps
+    were accepted at the working-precision stall floor rather than the
+    abs/rel tolerance, and the distribution of those steps' final relative
+    residuals."""
+
+    def __init__(self):
+        self.steps = 0
+        self.stalled = 0
+        self._rels = []
+
+    def update(self, nw_stalls, rns, r0s):
+        m = np.asarray(nw_stalls, dtype=bool)
+        self.steps += int(m.size)
+        self.stalled += int(m.sum())
+        if m.any():
+            rel = np.asarray(rns, dtype=float)[m] \
+                / np.maximum(np.asarray(r0s, dtype=float)[m], 1e-300)
+            self._rels.extend(rel.tolist())
+
+    def summary(self):
+        out = {"newton_steps": self.steps,
+               "newton_stalled_steps": self.stalled,
+               "newton_stalled_frac": round(
+                   self.stalled / max(1, self.steps), 5)}
+        if self._rels:
+            r = np.asarray(self._rels)
+            out["stalled_rel_residual"] = {
+                "min": float(r.min()),
+                "p50": float(np.percentile(r, 50)),
+                "p90": float(np.percentile(r, 90)),
+                "max": float(r.max())}
+        return out
+
+
+def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
+                       newton_cfg, rebuild_freq, newton_csv, step, t, n,
+                       print_level=0, print_multiline=True):
+    """The Newton loop of the ablation drivers (PetscNewtonSolver::SolveImpl
+    semantics: r0 = max(1, |R0|), abs/rel tolerance, Jacobian rebuild
+    frequency, BC re-enforcement after every update, per-iteration CSV
+    logging, and the stall exits of ``scan_newton``).
+
+    residual(T, p) -> R (2n,) BC-masked stacked residual;
+    factorize(T, p) -> object with .solve(rhs) -> dx, a tensor on rhs's
+    device (host LU or on-device block GMRES — see
+    make_block_linear_solver); enforce_bc(T, p) -> (T, p).
+
+    Newton CSV row schema:
+    [step, t, it, |R|, r0, |R|/r0, |du|, du0, |du|/du0, converged].
+
+    Returns (T, p, iters, timing) with timing keys nres/njac/nlin/nupd;
+    raises RuntimeError on non-convergence."""
+    import time as _time
+
+    nres = njac = nlin = nupd = 0.0
+    r0 = du0 = 1.0
+    converged = False
+    iters = 0
+    final_res = np.inf
+    lu = None
+    rbest = np.inf
+    rmax = np.inf
+    noimp = 0
+    un_prev = np.inf
+    stall_improve = getattr(newton_cfg, "stall_improve", 1e-3)
+    stall_patience = getattr(newton_cfg, "stall_patience", 2)
+    stall_accept = getattr(newton_cfg, "stall_accept_rel", 1e-3)
+    stall_flat = getattr(newton_cfg, "stall_flat_factor", 1.15)
+    flat_enabled = float(stall_flat) > 1.0
+    stall_dx_rtol = getattr(newton_cfg, "stall_dx_rtol", None)
+    if stall_dx_rtol is None:
+        stall_dx_rtol = 30.0 * float(torch.finfo(T.dtype).eps)
+    for it in range(newton_cfg.max_iter):
+        tt = _time.perf_counter()
+        R = residual(T, p)
+        res_norm = float(torch.linalg.vector_norm(R))
+        nres += _time.perf_counter() - tt
+        if it == 0:
+            r0 = max(1.0, res_norm)
+        rel_res = res_norm / r0
+        final_res = res_norm
+        # window MAXIMUM vs the pre-update best, so an oscillating
+        # divergence never flat-exits on a dip; every linear solve here
+        # passed check_linear_result, satisfying the usable-solve gate
+        rbest_pre = rbest
+        improved = res_norm < (1.0 - stall_improve) * rbest
+        noimp = 0 if improved else noimp + 1
+        rmax = res_norm if improved else max(rmax, res_norm)
+        rbest = min(rbest, res_norm)
+        xnorm = float(torch.sqrt(torch.sum(T * T) + torch.sum(p * p)))
+        flat_ok = flat_enabled and rmax <= stall_flat * rbest_pre
+        stalled = noimp >= stall_patience and (
+            rel_res < stall_accept or un_prev <= stall_dx_rtol * xnorm
+            or flat_ok)
+        if res_norm < newton_cfg.abs_tol or rel_res < newton_cfg.rel_tol \
+                or stalled:
+            converged = True
+            iters = it
+            newton_csv.writerow([step, t, it, res_norm, r0, rel_res,
+                                 0.0, du0, 0.0, 1])
+            break
+        if lu is None or it % rebuild_freq == 0:
+            tt = _time.perf_counter()
+            lu = factorize(T, p)
+            njac += _time.perf_counter() - tt
+        tt = _time.perf_counter()
+        dx = lu.solve(-R)
+        un = float(torch.linalg.vector_norm(dx))
+        nlin += _time.perf_counter() - tt
+        tt = _time.perf_counter()
+        un_prev = un
+        if it == 0:
+            du0 = max(1.0, un)
+        T, p = enforce_bc(T + dx[:n], p + dx[n:])
+        device_sync(T.device)()
+        nupd += _time.perf_counter() - tt
+        newton_csv.writerow([step, t, it, res_norm, r0, rel_res,
+                             un, du0, un / du0, 0])
+        if print_level > 0:
+            if print_multiline:
+                print(f"NR iteration {it}:\n|R|/|R0|= {rel_res}\n"
+                      f"|R|= {res_norm}\n|du|/|du0|= {un / du0}\n|du|= {un}")
+            else:
+                print(f"NR iteration {it}: |R|/|R0|= {rel_res} "
+                      f"|R|= {res_norm}")
+    if not converged:
+        raise RuntimeError(
+            f"Newton did not converge at step {step}, final residual="
+            f"{final_res}")
+    return T, p, iters, {"nres": nres, "njac": njac, "nlin": nlin,
+                         "nupd": nupd}
+
+
+def make_block_linear_solver(cfg: dict, element_dofs, n, ess_T, ess_p,
+                             node_positions=None, *, device):
+    """Optional on-device iterative solver for the ablation (T, p) Newton
+    systems (YAML key ``linear_solver``).
+
+    Returns None for the default host sparse-LU path (``lu``, the MUMPS
+    analog), or a factory ``factory(blocks, face=None, face_elem=None)``
+    producing objects whose ``.solve(rhs)`` returns dx on the device, so the
+    Newton loops are solver-agnostic; every solve's ``SolveResult`` is
+    appended to ``factory.results``.  Tuning keys: ``linear_rtol``
+    (default 1e-10), ``gmres_restart`` (400), ``gmres_maxiter`` (10
+    cycles).  On a tensor-product strip lattice (``node_positions``) the
+    solver uses the stencil (DIA) matvec (``gmres_lattice: false`` opts
+    out)."""
+    mode = str(cfg.get("linear_solver", "lu")).lower()
+    if mode in ("lu", "direct", "mumps"):
+        return None
+    if mode not in ("gmres", "iterative", "krylov"):
+        raise ValueError(
+            f"linear_solver must be 'lu' or 'gmres', got {mode!r}")
+    from ..solvers.blocksolve import BlockNewtonKrylov, strip_dof_lattice
+
+    dof_lattice = None
+    if node_positions is not None and bool(cfg.get("gmres_lattice", True)):
+        try:
+            dof_lattice = strip_dof_lattice(node_positions)
+        except ValueError:
+            dof_lattice = None
+
+    bks = BlockNewtonKrylov(
+        element_dofs, n, ess_T, ess_p,
+        restart=int(cfg.get("gmres_restart", 400)),
+        maxiter=int(cfg.get("gmres_maxiter", 10)),
+        dof_lattice=dof_lattice, device=device)
+    rtol = float(cfg.get("linear_rtol", 1.0e-10))
+    results = []
+
+    class _Prepared:
+        def __init__(self, factors):
+            self.factors = factors
+
+        def solve(self, rhs):
+            res = bks.solve(self.factors, rhs, rtol=rtol)
+            results.append(res)
+            check_linear_result(res, "block GMRES")
+            return res.x
+
+    def factory(blocks, face=None, face_elem=None):
+        return _Prepared(bks.prepare(blocks, face=face, face_elem=face_elem))
+
+    factory.results = results
+    return factory
+
+
+def maybe_enable_lattice_residual(cfg: dict, sys_, fes):
+    """Opt-in window-slicing ablation residual (YAML ``lattice_residual:
+    true``): on tensor-product strip meshes the residual's per-element
+    gather and scatter become strided windows
+    (``AblationSystem.set_dof_lattice``).  Explicit opt-in raises if the
+    mesh does not qualify rather than silently degrading."""
+    if not bool(cfg.get("lattice_residual", False)):
+        return False
+    from ..solvers.blocksolve import strip_dof_lattice
+
+    sys_.set_dof_lattice(strip_dof_lattice(fes.node_positions))
+    print("lattice_residual: window-slicing residual path enabled "
+          f"({sys_.lat.NY}x{sys_.lat.NX} dof lattice)")
+    return True
+
+
+def maybe_reorder_strip_mesh(cfg: dict, mesh):
+    """With ``lattice_residual: true``, renumber strip-mesh elements
+    row-major over the cell lattice (``ops.lattice2d.strip_element_order``)
+    so the window-slicing residual path qualifies; GMSH transfinite meshes
+    enumerate elements in generator order.  No-op for other configs or
+    non-tensor meshes (the residual opt-in will then raise with a clear
+    message).  Must run before any per-element state is built."""
+    if not bool(cfg.get("lattice_residual", False)):
+        return mesh
+    from ..ops.lattice2d import reorder_mesh_elements, strip_element_order
+
+    try:
+        order = strip_element_order(mesh)
+    except ValueError:
+        return mesh
+    if (order == np.arange(len(order))).all():
+        return mesh
+    print(f"lattice_residual: renumbered {len(order)} strip elements "
+          "row-major over the cell lattice")
+    cfg["_elem_order"] = "strip-row-major"
+    return reorder_mesh_elements(mesh, order)

@@ -2,6 +2,7 @@ from .reference_elements import ReferenceElement, get_reference_element
 from .quadrature import QuadratureRule, gauss_rule
 from .mesh import (
     Mesh, load_gmsh, write_gmsh, make_cartesian_mesh_2d, make_cartesian_mesh_3d,
+    make_strip_mesh_2d,
 )
 from .fespace import FESpace
 from .geometry import (
@@ -22,6 +23,7 @@ __all__ = [
     "write_gmsh",
     "make_cartesian_mesh_2d",
     "make_cartesian_mesh_3d",
+    "make_strip_mesh_2d",
     "FESpace",
     "GeometricFactors",
     "compute_geometric_factors",

@@ -298,6 +298,23 @@ def make_cartesian_mesh_2d(nx: int, ny: int, sx=1.0, sy=1.0, x0=0.0, y0=0.0,
     return Mesh(2, geom, verts, conn, attr, SEGMENT, bdr_conn, bdr_attr)
 
 
+def make_strip_mesh_2d(nx: int, ny: int, sx=0.0025, sy=0.05,
+                       grading=10.0) -> Mesh:
+    """The ablation strip: nx x ny quads on [0, sx] x [0, sy], the cell
+    heights a geometric progression that shrinks toward the heated top
+    (bottom cell ``grading`` times the top one).  Boundary attributes as
+    ``make_cartesian_mesh_2d`` (3 = top).  Elements are row-major over the
+    cell lattice, so the strip qualifies for ``ops.lattice2d``."""
+    mesh = make_cartesian_mesh_2d(nx, ny, sx=sx, sy=sy)
+    q = (1.0 / grading) ** (1.0 / max(ny - 1, 1))
+    h = q ** np.arange(ny)
+    ys = np.concatenate([[0.0], np.cumsum(h)]) * (sy / h.sum())
+    ys[-1] = sy
+    v = mesh.vertices.copy()
+    v[:, 1] = np.repeat(ys, nx + 1)
+    return mesh.with_vertices(v)
+
+
 def make_cartesian_mesh_3d(nx: int, ny: int, nz: int, sx=1.0, sy=1.0, sz=1.0) -> Mesh:
     """Structured hex mesh on [0,sx]x[0,sy]x[0,sz].
 

@@ -14,7 +14,11 @@ tensors here, so both packages can be made to compute the same thing:
 - ``geometric_mg_from_arrays``: a GeometricMG whose levels carry the other
   package's data, diagonal, mask, transfer stencils and ``lmax`` (the two
   packages' power iterations start from different random vectors, so only
-  carried-over ``lmax`` makes their V-cycles comparable).
+  carried-over ``lmax`` makes their V-cycles comparable);
+- ``ablation_state_from_numpy``: an ``AblationState`` (the per-QP reaction
+  extents and the element diagnostics) from the JAX package's, so both
+  packages compute the ablation residual and Jacobian from one state (the
+  material crosses as the same deck mapping, ``TacotMaterial.from_mapping``).
 
 ``lattice_index`` is the entity -> lattice DOF permutation of a
 ``make_cartesian_mesh_3d`` space, taken from the topology (element
@@ -141,3 +145,22 @@ def geometric_mg_from_arrays(specs, make_form, levels, *, quad_order=None,
             lvl["Pw"] = _tensor(a["Pw"], device, dtype)
         out.append(lvl)
     return GeometricMG(out)
+
+
+_STATE_FIELDS = ("tau_elem", "rho_elem", "pi_elem", "mdot_elem",
+                 "extent_elem", "degree_char_elem",
+                 "char_density_fraction_elem")
+
+
+def ablation_state_from_numpy(state, *, device, dtype=torch.float64):
+    """The port's ``AblationState`` from the JAX package's (its arrays read
+    with ``np.asarray``): the extents (ne, nq, nr) become a tensor on
+    ``device`` in ``dtype``, the element diagnostics numpy copies."""
+    from .physics.ablation import AblationState
+
+    host = lambda a: None if a is None else np.array(np.asarray(a),
+                                                     dtype=np.float64)
+    return AblationState(
+        extent=_tensor(np.asarray(state.extent), device, dtype),
+        **{k: host(getattr(state, k)) for k in _STATE_FIELDS},
+        pi_qp=host(state.pi_qp))

@@ -1,0 +1,422 @@
+"""Coupled (T, p) porous-medium pyrolysis system (ablation case 1).
+
+Port of the case-1 surface of ``cmfem_tpu/physics/ablation.py`` (the
+reference's ``AblationTPIntegrator`` + ``ReactionStateManager``):
+
+- energy residual: solid+gas storage, conduction, Darcy enthalpy advection,
+  gravity work, pyrolysis heat sink;
+- pressure residual: gas storage, Darcy flux, pyrolysis source;
+- per-QP reaction extents advanced by the implicit TACOT extent solve and
+  frozen per step (recomputed from the old state inside the residual, so
+  AD differentiates through the extent Newton);
+- element Jacobian blocks by ``torch.func.vmap(torch.func.jacfwd(...))``;
+- element-average diagnostics and the top-boundary Darcy mass-flux
+  diagnostic.
+
+Everything is batched over (ne, nq) on the device of the ``SpaceOps``.  The
+case-2 parts of the JAX module (the SEB face terms and their Jacobians,
+the recession velocity, the mass-equation probes) raise
+``NotImplementedError`` here until their slices port them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops.assembly import SpaceOps
+from ..ops.faces import BoundaryTrace
+from .tacot import TacotMaterial
+
+MU_FLOOR = 1.0e-12
+
+_CASE21 = ("the SEB surface terms belong to ablation case 2.1, which is not "
+           "ported yet (ROADMAP queue A item 14, the case-2.1 slice)")
+_CASE22 = ("the recession and mass-probe diagnostics belong to ablation case "
+           "2.2, which is not ported yet (ROADMAP queue A item 16, the "
+           "case-2.2 slice)")
+
+
+@dataclass
+class AblationState:
+    """Per-QP committed reaction extents (a tensor on the device) and
+    element-average diagnostics (numpy)."""
+
+    extent: torch.Tensor           # (ne, nq, nr) committed
+    tau_elem: np.ndarray           # (ne,)
+    rho_elem: np.ndarray
+    pi_elem: np.ndarray
+    mdot_elem: np.ndarray
+    extent_elem: np.ndarray        # (nr, ne)
+    degree_char_elem: np.ndarray
+    char_density_fraction_elem: np.ndarray
+    pi_qp: np.ndarray | None = None  # (ne, nq) per-QP pyrolysis rate
+
+    @classmethod
+    def initial(cls, ne, nq, material: TacotMaterial, *, device,
+                dtype=torch.float64):
+        nr = material.num_reactions
+        return cls(
+            extent=torch.zeros((ne, nq, nr), dtype=dtype, device=device),
+            tau_elem=np.ones(ne),
+            rho_elem=np.full(ne, material.initial_solid_density()),
+            pi_elem=np.zeros(ne),
+            mdot_elem=np.zeros(ne),
+            extent_elem=np.zeros((nr, ne)),
+            degree_char_elem=np.zeros(ne),
+            char_density_fraction_elem=np.zeros(ne),
+            pi_qp=np.zeros((ne, nq)),
+        )
+
+
+def _grad(invJ, gref):
+    """Physical gradient from reference gradients: sum_r invJ[r, d] g[r]."""
+    return torch.sum(invJ * gref[..., :, None], dim=-2)
+
+
+class AblationSystem:
+    """The coupled residual, AD Jacobian, state advance, and diagnostics."""
+
+    def __init__(self, ops: SpaceOps, material: TacotMaterial,
+                 gravity=(0.0, 0.0), top_attr: int = 1):
+        self.ops = ops
+        self.mat = material
+        self.gravity = torch.as_tensor(np.asarray(gravity, dtype=np.float64),
+                                       dtype=ops.dtype, device=ops.device)
+        self.n = ops.fes.nscalar
+        self.ne, self.nq = ops.gf.wdetJ.shape
+        self.trace = BoundaryTrace(ops, attr_marker=[top_attr])
+        self._trace_elem = torch.as_tensor(self.trace.elem, device=ops.device)
+        self.lat = None
+
+    def set_dof_lattice(self, lat):
+        """Take the window-slicing residual path on a tensor-product strip
+        mesh (``ops.lattice2d``): the per-element gather and scatter become
+        strided windows and overlap-adds (the quadrature work between them
+        is the generic path's).  Raises ValueError when the mesh
+        elements are not row-major over the cell lattice."""
+        from ..ops.lattice2d import StripLatticeOps
+
+        self.lat = StripLatticeOps(self.ops.fes.element_dofs, self.n, lat,
+                                   device=self.ops.device)
+        return self.lat
+
+    # -- QP-level residual densities --------------------------------------
+
+    def _qp_residual(self, Tq, gTq, pq, gpq, T_old_q, p_old_q, X_old, dt,
+                     wq=None, gcl=None,
+                     ale_toggles=(True, True, True)):
+        """Residual densities at QPs.
+
+        Returns (r0T, r1T, r0p, r1p): test-value and test-gradient weights
+        for the energy and pressure equations (all (..., nq[, dim])).
+        With a mesh velocity wq (..., nq, dim) the case-2.2 ALE advective
+        terms +(eps_g rho)(w . grad psi) and
+        +(rho_s cp T + eps_g(rho h - p))(w . grad psi) are added; ``gcl``
+        (J_old, J_new) switches the storage terms to their Jacobian-weighted
+        geometric-conservation form."""
+        mat = self.mat
+        X = mat.solve_reaction_extents(Tq, dt, X_old)
+        solid = mat.solid_props(Tq, pq, X, extent_old=X_old, dt=dt)
+        gas = mat.gas_props(Tq, pq)
+        solid_old = mat.solid_props(T_old_q, p_old_q, X_old)
+        gas_old = mat.gas_props(T_old_q, p_old_q)
+
+        mu = torch.clamp(gas["mu"], min=MU_FLOOR)
+        darcy = solid["K"] / mu
+        rho_darcy = gas["rho"] * darcy
+        rho2_darcy = gas["rho"] * rho_darcy
+        h_rho_darcy = gas["h"] * rho_darcy
+        h_rho2_darcy = gas["h"] * rho2_darcy
+
+        ale_mass_on, ale_es_on, ale_eg_on = ale_toggles
+        e_m_new = solid["eps_g"] * gas["rho"]
+        e_m_old = solid_old["eps_g"] * gas_old["rho"]
+        e_s_new = solid["rho_s"] * solid["cp"] * Tq
+        e_s_old = solid_old["rho_s"] * solid_old["cp"] * T_old_q
+        e_g_new = solid["eps_g"] * (gas["rho"] * gas["h"] - pq)
+        e_g_old = solid_old["eps_g"] * (gas_old["rho"] * gas_old["h"]
+                                        - p_old_q)
+        # plain backward-Euler storage (the solid term uses NEW properties
+        # with the temperature difference, as the reference does)
+        storage_p = (e_m_new - e_m_old) / dt
+        solid_storage = solid["rho_s"] * solid["cp"] * (Tq - T_old_q) / dt
+        gas_storage = (e_g_new - e_g_old) / dt
+        if gcl is not None:
+            J_old, J_new = gcl
+            ok = (J_old > 0) & (J_new > 0)
+            Jn = torch.where(ok, J_new, 1.0)
+            Jo = torch.where(ok, J_old, 1.0)
+
+            def gcl_storage(enabled, enew, eold, plain):
+                if not enabled:
+                    return plain
+                return torch.where(ok, (Jn * enew - Jo * eold) / (Jn * dt),
+                                   plain)
+
+            storage_p = gcl_storage(ale_mass_on, e_m_new, e_m_old, storage_p)
+            solid_storage = gcl_storage(ale_es_on, e_s_new, e_s_old,
+                                        solid_storage)
+            gas_storage = gcl_storage(ale_eg_on, e_g_new, e_g_old,
+                                      gas_storage)
+        source_p = solid["pi_total"]
+
+        g = self.gravity
+        r0p = storage_p - source_p
+        r1p = rho_darcy[..., None] * gpq - rho2_darcy[..., None] * g
+        r0T = solid_storage + gas_storage - solid["pyrolysis_heat_sink"]
+        r1T = (solid["k"][..., None] * gTq
+               + h_rho_darcy[..., None] * gpq
+               - h_rho2_darcy[..., None] * g)
+        if wq is not None:
+            ale_mass = e_m_new if ale_mass_on else torch.zeros_like(e_m_new)
+            ale_energy = ((e_s_new if ale_es_on else 0.0)
+                          + (e_g_new if ale_eg_on else 0.0))
+            r1p = r1p + ale_mass[..., None] * wq
+            if ale_es_on or ale_eg_on:
+                r1T = r1T + ale_energy[..., None] * wq
+        return r0T, r1T, r0p, r1p
+
+    # -- global residual ---------------------------------------------------
+
+    def residual(self, T, p, T_old_q, p_old_q, X_old, dt, gf=None, wq=None,
+                 gcl=None, ale_toggles=(True, True, True)):
+        """Global block residual (R_T, R_p) for dof vectors T, p (n,)."""
+        ops = self.ops
+        gf = gf or ops.gf
+        lp = self.lat
+        if lp is not None:
+            T_e = lp.gather_elem(lp.to_lat(T))
+            p_e = lp.gather_elem(lp.to_lat(p))
+        else:
+            T_e, p_e = T[ops.eldofs], p[ops.eldofs]
+        Tq = torch.einsum("qn,en->eq", ops.B, T_e)
+        pq = torch.einsum("qn,en->eq", ops.B, p_e)
+        gTref = torch.einsum("qnr,en->eqr", ops.G, T_e)
+        gpref = torch.einsum("qnr,en->eqr", ops.G, p_e)
+        gT, gp = _grad(gf.invJ, gTref), _grad(gf.invJ, gpref)
+        r0T, r1T, r0p, r1p = self._qp_residual(
+            Tq, gT, pq, gp, T_old_q, p_old_q, X_old, dt, wq=wq, gcl=gcl,
+            ale_toggles=ale_toggles)
+
+        def scatter_pair(r0, r1):
+            y_e = torch.einsum("qn,eq->en", ops.B, r0 * gf.wdetJ)
+            r1ref = torch.sum(gf.invJ * r1[..., None, :], dim=-1)
+            y_e = y_e + torch.einsum("qnr,eqr->en", ops.G,
+                                     r1ref * gf.wdetJ[..., None])
+            return lp.scatter(y_e) if lp is not None else ops.scatter(y_e)
+
+        return scatter_pair(r0T, r1T), scatter_pair(r0p, r1p)
+
+    # -- element Jacobian blocks ------------------------------------------
+
+    def elem_residual_fn(self, dt, gcl_enabled=False,
+                         ale_toggles=(True, True, True)):
+        """Single-element residual closure
+        ``elem_res(elT, elp, invJ, wdetJ, To, po, Xo, wqe, Jo, Jn) ->
+        (rT (nd,), rp (nd,))``: the per-element quadrature work of the
+        global residual.  It never scatters (``vmap`` refuses an in-place
+        ``index_add_`` into an unbatched target)."""
+        B, G = self.ops.B, self.ops.G
+
+        def elem_res(elT, elp, invJ, wdetJ, To, po, Xo, wqe, Jo, Jn):
+            Tq = (B @ elT)[None]
+            pq = (B @ elp)[None]
+            gT = _grad(invJ, torch.einsum("qnr,n->qr", G, elT))[None]
+            gp = _grad(invJ, torch.einsum("qnr,n->qr", G, elp))[None]
+            r0T, r1T, r0p, r1p = self._qp_residual(
+                Tq, gT, pq, gp, To[None], po[None], Xo[None], dt,
+                wq=wqe[None],
+                gcl=(Jo[None], Jn[None]) if gcl_enabled else None,
+                ale_toggles=ale_toggles)
+
+            def pair(r0, r1):
+                y = B.T @ (r0[0] * wdetJ)
+                r1ref = torch.sum(invJ * r1[0][..., None, :], dim=-1)
+                return y + torch.einsum("qnr,qr->n", G,
+                                        r1ref * wdetJ[:, None])
+
+            return pair(r0T, r1T), pair(r0p, r1p)
+
+        return elem_res
+
+    def element_jacobians(self, T, p, T_old_q, p_old_q, X_old, dt, gf=None,
+                          wq=None, gcl=None, ale_toggles=(True, True, True)):
+        """(ne, nd, nd) x4 Jacobian blocks d(rT,rp)/d(elT,elp) by forward AD,
+        all elements in one ``vmap(jacfwd)``.  The JAX package chunks the
+        element axis (``CMFEM_ELEMJAC_CHUNK``) for its TPU memory; here the
+        blocks of the largest mesh run (42k order-1 quads) take 21 MB in
+        float64 and the transform's working set a few hundred, so there is
+        no chunking."""
+        ops = self.ops
+        gf = gf or ops.gf
+        if wq is None:
+            wq = torch.zeros(gf.wdetJ.shape + (gf.xq.shape[-1],),
+                             dtype=gf.wdetJ.dtype, device=gf.wdetJ.device)
+        if gcl is None:
+            neg = torch.full_like(gf.wdetJ, -1.0)
+            gcl_arrs = (neg, neg)
+        else:
+            gcl_arrs = gcl
+        elem_res = self.elem_residual_fn(dt, gcl_enabled=gcl is not None,
+                                         ale_toggles=ale_toggles)
+        jac = torch.func.vmap(torch.func.jacfwd(elem_res, argnums=(0, 1)))
+        (JTT, JTp), (JpT, Jpp) = jac(T[ops.eldofs], p[ops.eldofs], gf.invJ,
+                                     gf.wdetJ, T_old_q, p_old_q, X_old, wq,
+                                     *gcl_arrs)
+        return JTT, JTp, JpT, Jpp
+
+    # -- checks, state advance, diagnostics -------------------------------
+
+    def jacobian_check(self, T, p, T_old_q, p_old_q, X_old, dt,
+                       abs_tol=1e-6, rel_tol=1e-4, n_dirs=3, fd_eps=1e-7,
+                       gf=None, wq=None, gcl=None,
+                       ale_toggles=(True, True, True), seed=0,
+                       seb=None, bc=None, vertices=None,
+                       skip_nonsmooth=True):
+        """AD-vs-FD Jacobian consistency check (the reference's opt-in
+        jacobian_check): the element-block-assembled Jacobian action J v is
+        compared against a central finite-difference directional derivative
+        of the global residual for n_dirs random directions.  Raises with
+        the argmax row on mismatch; returns the max relative error.  The
+        SEB face blocks (``seb``) belong to case 2.1 and raise."""
+        import scipy.sparse as sp
+
+        if seb is not None:
+            raise NotImplementedError(_CASE21)
+        blocks = self.element_jacobians(T, p, T_old_q, p_old_q, X_old, dt,
+                                        gf=gf, wq=wq, gcl=gcl,
+                                        ale_toggles=ale_toggles)
+        n = self.n
+        ed = np.asarray(self.ops.fes.element_dofs, dtype=np.int64)
+        nd = ed.shape[1]
+        rows_b = np.repeat(ed, nd, axis=1).reshape(-1)
+        cols_b = np.tile(ed, (1, nd)).reshape(-1)
+        rows = np.concatenate([rows_b, rows_b, rows_b + n, rows_b + n])
+        cols = np.concatenate([cols_b, cols_b + n, cols_b, cols_b + n])
+        vals = np.concatenate([b.cpu().numpy().reshape(-1) for b in blocks])
+        J = sp.coo_matrix((vals, (rows, cols)), shape=(2 * n, 2 * n)).tocsr()
+        dev, dtype = T.device, T.dtype
+
+        def R(x):
+            xt = torch.as_tensor(x, dtype=dtype, device=dev)
+            RT, Rp = self.residual(xt[:n], xt[n:], T_old_q, p_old_q, X_old,
+                                   dt, gf=gf, wq=wq, gcl=gcl,
+                                   ale_toggles=ale_toggles)
+            return torch.cat([RT, Rp]).cpu().numpy()
+
+        x0 = torch.cat([T, p]).cpu().numpy()
+        rng = np.random.default_rng(seed)
+        max_rel = 0.0
+        for _ in range(n_dirs):
+            v = rng.standard_normal(2 * n)
+            v *= np.maximum(1.0, np.abs(x0)) / np.linalg.norm(v)
+            h = fd_eps
+            fd = (R(x0 + h * v) - R(x0 - h * v)) / (2 * h)
+            jv = J @ v
+            err = np.abs(jv - fd)
+            scale = max(float(np.abs(fd).max()), 1.0)
+            rel = float(err.max()) / scale
+            max_rel = max(max_rel, rel)
+            if err.max() > abs_tol * scale + rel_tol * scale:
+                i = int(err.argmax())
+                raise RuntimeError(
+                    f"Jacobian check failed at row {i}: "
+                    f"AD(Jv)={jv[i]:.6e} FD={fd[i]:.6e} "
+                    f"(abs err {err[i]:.3e}, scale {scale:.3e})")
+        return max_rel
+
+    def advance_state_arrays(self, X_old, T, p, dt):
+        """The state advance on the device: returns
+        (X_new, tau_e, rho_e, pi_e, mdot_e, extent_e (nr, ne), pi_qp)."""
+        ops = self.ops
+        mat = self.mat
+        Tq = ops.values_at_qp(T)
+        pq = ops.values_at_qp(p)
+        X = mat.solve_reaction_extents(Tq, dt, X_old)
+        solid = mat.solid_props(Tq, pq, X, extent_old=X_old, dt=dt)
+        return (X, torch.mean(solid["tau"], dim=1),
+                torch.mean(solid["rho_s"], dim=1),
+                torch.mean(solid["pi_total"], dim=1),
+                torch.mean(solid["m_dot_g"], dim=1),
+                torch.mean(X, dim=1).T, solid["pi_total"])
+
+    def state_from_arrays(self, X, tau_e, rho_e, pi_e, mdot_e, extent_e,
+                          pi_qp) -> AblationState:
+        """An AblationState from ``advance_state_arrays``' output (the
+        diagnostics are copied to the host)."""
+        mat = self.mat
+        host = lambda a: a.cpu().numpy() if torch.is_tensor(a) \
+            else np.asarray(a)
+        tau_e, rho_e = host(tau_e), host(rho_e)
+        rho_v = mat.initial_solid_density()
+        rho_c = mat.char_solid_density()
+        den = rho_v - rho_c
+        cdf = np.clip((rho_v - rho_e) / den, 0.0, 1.0) if abs(den) > 1e-14 \
+            else np.zeros_like(rho_e)
+        return AblationState(
+            extent=X, tau_elem=tau_e, rho_elem=rho_e,
+            pi_elem=host(pi_e), mdot_elem=host(mdot_e),
+            extent_elem=host(extent_e),
+            degree_char_elem=np.clip(1.0 - tau_e, 0.0, 1.0),
+            char_density_fraction_elem=cdf, pi_qp=host(pi_qp))
+
+    def advance_state(self, state: AblationState, T, p, dt) -> AblationState:
+        """Commit per-QP extents after a converged step and refresh the
+        element-average diagnostics (AdvanceInternalStates)."""
+        return self.state_from_arrays(
+            *self.advance_state_arrays(state.extent, T, p, dt))
+
+    def top_boundary_mass_flux(self, T, p, state, vertices=None):
+        """Area-averaged outward Darcy mass flux on the top boundary
+        (ComputeTopBoundaryMassFlux), a 0-d tensor.  Uses the adjacent
+        element's first-QP reaction state as representative.  ``state`` may
+        be an AblationState or a raw (ne, nq, nr) extent tensor."""
+        tr = self.trace
+        Tq = tr.values(T)
+        pq = tr.values(p)
+        gp = tr.grads(p, vertices)
+        extent = state.extent if isinstance(state, AblationState) else state
+        Xrep = extent[self._trace_elem, 0]  # (nbf, nr)
+        Xf = torch.broadcast_to(Xrep[:, None, :],
+                                (tr.nbf, tr.quad.nqp, Xrep.shape[-1]))
+        solid = self.mat.solid_props(Tq, pq, Xf)
+        gas = self.mat.gas_props(Tq, pq)
+        mu = torch.clamp(gas["mu"], min=MU_FLOOR)
+        rho_darcy = gas["rho"] * solid["K"] / mu
+        rho2_darcy = gas["rho"] * rho_darcy
+        mflux = (-rho_darcy[..., None] * gp
+                 + rho2_darcy[..., None] * self.gravity)
+        ff = tr.face_factors(vertices)
+        flux_int = torch.sum(torch.sum(mflux * ff.normal, dim=-1) * ff.wdS)
+        area = torch.sum(ff.wdS)
+        return torch.where(area > 0, flux_int / area,
+                           torch.full_like(area, float("nan")))
+
+    # -- case 2.1 / 2.2 (not ported yet) ------------------------------------
+
+    def seb_face_residual(self, *args, **kwargs):
+        raise NotImplementedError(_CASE21)
+
+    def seb_face_res_fn(self, *args, **kwargs):
+        raise NotImplementedError(_CASE21)
+
+    def seb_face_jacobians(self, *args, **kwargs):
+        raise NotImplementedError(_CASE21)
+
+    def top_boundary_terms(self, *args, **kwargs):
+        raise NotImplementedError(_CASE21)
+
+    def top_boundary_diagnostics(self, *args, **kwargs):
+        raise NotImplementedError(_CASE21)
+
+    def top_boundary_recession_velocity(self, *args, **kwargs):
+        raise NotImplementedError(_CASE22)
+
+    def mass_eq_probe(self, *args, **kwargs):
+        raise NotImplementedError(_CASE22)
+
+    def mass_eq_probe_scan(self, *args, **kwargs):
+        raise NotImplementedError(_CASE22)

@@ -1,4 +1,4 @@
-"""Where the time of slices 2, 3, 6 and 7's paths goes, on one GPU.
+"""Where the time of slices 2, 3, 6, 7 and 8's paths goes, on one GPU.
 
     python -m cmfem_tpu_torch.profiling [--n 48] [--out FILE]
                                         [--sections operators,vcycle,...]
@@ -34,7 +34,14 @@ order-2 elements:
 - the elasticity driver's 2D default solved 12 times (section
   ``elasticity_cg``) with the vector forms' fixed-order scatter and with an
   ``index_add_`` scatter in its place: the CG iterations of each solve and
-  how many stop early.
+  how many stop early;
+- one step of the ablation case-1 driver (section ``ablation``) through
+  ``scan_stepping`` on chip_smoke's phase-11 strip (11 x 239 quads, graded
+  toward the heated top) with the synthetic TACOT deck, unrefined and
+  refined twice, float64: the driver run whole for 1 and for 2 steps,
+  differenced, and each piece alone at the run's final state — residual,
+  ``vmap(jacfwd)`` element Jacobians, block-QR factorization, banded solve
+  with its GMRES, the host ``splu`` path, state advance.
 
 For each it prints the host wall per repetition (profiled, and unprofiled
 where stated), the device busy time (the sum of the device activities'
@@ -329,10 +336,91 @@ def profile_elasticity_cg(n, dev, rng, out, reps=12):
                 f"stopped early; CG iterations (final rel residual): {runs}")
 
 
+DECK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tests", "fixtures", "tacot_synthetic.json")
+
+
+def profile_ablation(n, dev, rng, out, nx=11, ny=239, ref_levels=(0, 2)):
+    """One step of the ablation case-1 driver (``scan_stepping``, the block-QR
+    solver on the card) on chip_smoke's graded strip with the synthetic
+    TACOT deck, unrefined and refined twice: the driver run whole for 1 and
+    for 2 steps under the profiler, differenced; then each piece alone at the
+    run's final state (host ms with the device synchronized, and device
+    busy): the residual, the ``vmap(jacfwd)`` element Jacobians, the
+    block-QR factorization, the banded solve with its GMRES, the host
+    ``splu`` path's assembly and factorization and one LU solve, and the
+    state advance."""
+    from .apps import ablation_case1
+    from .core import make_strip_mesh_2d
+    from .solvers.blocksolve import make_scan_block_solver
+
+    def piece(label, fn, reps, top=5):
+        ms = host_ms(fn, reps=reps, warmup=1)
+        profiled(label, fn, reps, out, top=top)
+        out(f"   {label}: unprofiled {ms:.3f} ms per call (host clock, "
+            "device synchronized)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        strip = write_gmsh(make_strip_mesh_2d(nx, ny),
+                           os.path.join(tmp, "strip.msh"))
+        for ref in ref_levels:
+            cfg = {"mesh_file": strip, "material_file": DECK, "order": 1,
+                   "dt": 0.1, "bdr_attr_top": 3, "probe_x": 0.00125,
+                   "serial_ref_levels": ref, "newton_print_level": 0,
+                   "save_paraview": False, "scan_stepping": True,
+                   "output_path": os.path.join(tmp, f"out{ref}")}
+            run = lambda steps: ablation_case1.run(
+                {**cfg, "t_final": steps * 0.1}, device=dev)
+            if ref == ref_levels[0]:
+                run(1)  # warm: the AD transforms' first use, the allocator
+            w1, b1, _ = device_busy(lambda: run(1))
+            w2, b2, r = device_busy(lambda: run(2))
+            wall, busy = w2 - w1, b2 - b1
+            out(f"== ablation_case1 scan_stepping, {2 * r['fes'].nscalar} "
+                f"DOFs (strip {nx} x {ny} refined {ref}x), step 2: wall "
+                f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+                f"{1 - busy / wall:.3f}; {r['newton_iters'][1]} Newton "
+                f"solves; the driver's own clock, ms: "
+                + ", ".join(f"{k} {1e3 * v:.1f}"
+                            for k, v in r["timing"][1].items()))
+            c = ablation_case1.Case1({**cfg, "t_final": 0.1}, dev,
+                                     torch.float64)
+            T = torch.as_tensor(r["T"], device=dev)
+            p = torch.as_tensor(r["p"], device=dev)
+            X = r["state"].extent
+            args = (T, p, c.ops.values_at_qp(T - 1.0), c.ops.values_at_qp(p),
+                    X, 0.1)
+            R = c.residual(*args)
+            blocks = c.sys.element_jacobians(*args)
+            btd = make_scan_block_solver(cfg, c.fes.element_dofs, c.n, c.ess,
+                                         c.ess, c.fes.node_positions,
+                                         device=dev)
+            fac = btd.prepare(blocks)
+            piece("residual", lambda: c.residual(*args), 5)
+            piece("vmap(jacfwd) element Jacobians",
+                  lambda: c.sys.element_jacobians(*args), 2)
+            piece(f"{type(btd).__name__} factorization",
+                  lambda: btd.prepare(blocks), 2)
+            piece("banded solve with its GMRES",
+                  lambda: btd.solve(fac, -R, rtol=1e-10), 2)
+            piece("host splu (blocks to the host, assembly, factorization)",
+                  lambda: c.host_lu(blocks), 2)
+            lu = c.host_lu(blocks)
+            piece("host LU solve (rhs to the host and back)",
+                  lambda: lu.solve(-R), 3)
+            piece("state advance", lambda: c.sys.advance_state_arrays(
+                X, T, p, 0.1), 5)
+            c.finish({k: 0.0 for k in ablation_case1.TIMING_KEYS
+                      + ("newton", "total")}, 0.0)
+            del c, blocks, fac, btd, lu, r
+            torch.cuda.empty_cache()
+
+
 SECTIONS = {"operators": profile_operators, "vcycle": profile_vcycle,
             "zchain": profile_zchain, "driver": profile_driver,
             "nonlinear": profile_nonlinear,
-            "elasticity_cg": profile_elasticity_cg}
+            "elasticity_cg": profile_elasticity_cg,
+            "ablation": profile_ablation}
 
 
 def main(argv=None):
@@ -343,11 +431,15 @@ def main(argv=None):
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args(argv)
     dev = require_cuda()
-    lines = []
+    # the report goes to --out line by line, so a run cut by a time limit
+    # keeps what it measured
+    sink = open(args.out, "w") if args.out else None
 
     def out(s):
         print(s, flush=True)
-        lines.append(s)
+        if sink is not None:
+            sink.write(s + "\n")
+            sink.flush()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -356,11 +448,12 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     out(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     rng = np.random.default_rng(0)
-    for name in args.sections.split(","):
-        SECTIONS[name](args.n, dev, rng, out)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
+    try:
+        for name in args.sections.split(","):
+            SECTIONS[name](args.n, dev, rng, out)
+    finally:
+        if sink is not None:
+            sink.close()
 
 
 if __name__ == "__main__":

@@ -52,7 +52,11 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.apps.nonlinear_diffusion",
             "cmfem_tpu_torch.apps.elasticity",
             "cmfem_tpu_torch.apps.diffusion_mms_ale",
-            "cmfem_tpu_torch.apps.qstar_blowing_1d"} <= set(mods)
+            "cmfem_tpu_torch.apps.qstar_blowing_1d",
+            "cmfem_tpu_torch.physics.tacot", "cmfem_tpu_torch.physics.ablation",
+            "cmfem_tpu_torch.ops.lattice2d",
+            "cmfem_tpu_torch.solvers.blocksolve",
+            "cmfem_tpu_torch.apps.ablation_case1"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
