@@ -117,7 +117,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      (``make_strip_mesh_2d``: 11 x 239 order-1 quads graded toward the
      heated top, 2.5 mm x 0.05 m, 5,760 (T, p) DOFs) with the synthetic deck
      ``tests/fixtures/tacot_synthetic.json`` (read without PyYAML), dt 0.1,
-     the default wall schedule: (a) 10 steps through the host LU (AD
+     the default wall schedule: (a) 6 steps through the host LU (AD
      Jacobians on the card, scipy ``splu``): every Newton solve converges,
      the last probe temperatures, m_dot_g and the two front depths equal the
      JAX driver's to 1e-7 relative with equal Newton counts; (b) the same run
@@ -130,15 +130,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      factorization's and the solve's ms per call, peak device memory, and
      the residual through the generic and the lattice path in turns (equal
      to 1e-12).  No kernel lies on this path; no launch count moves.
+ 12. slice 9, ablation case 2.1 through ``run(cfg)``, float64
+     (``run_ablation_case21``, sizes as arguments), on phase 11's strip and
+     deck with the synthetic B' table and the schedule fixture
+     ``tests/fixtures/surface_bc_case21.dat``, dt 0.1, 6 steps (1-4 on the
+     chemistry-blowing branch, step 4 on the 0.4 s node, 5-6 cooling): (a)
+     the eager host-LU path (element and SEB face blocks into ``splu``) with
+     ``jacobian_check``: every Newton solve converges, the face check skips
+     the first blowing step (B'g = 0 clamps at a uniform p) and passes the
+     cooling branch, the probes, m_dot_g, B'g, q_conv, q_surf and fronts at
+     t = 0.4 and 0.6 equal the JAX driver's to 1e-7 relative with equal
+     Newton counts; (b) ``scan_stepping`` (``BlockTridiagDirect`` with the
+     face blocks): its probe, mass, boundary and Newton CSVs equal (a)'s to
+     1e-8 across the branch switch; the blowing branch's face check passes
+     at the state after step 2 (bc at t = 0.3), and the element and face
+     Jacobians, the residual, one B' lookup and one diagnostics row are
+     timed alone there; (c) an eager run resumed from (a)'s t = 0.3
+     checkpoint ends at (a)'s T (2e-5 K) and p (1e-7 relative); peak device
+     memory.  No kernel lies on this path; no launch count moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
 sum-factorization kernel also ``earlier_ms``, the colour design's time in
-the same run), before it the drivers' JSON records (phase 9's, phase 10's
-and phase 11's: DOFs, steps, seconds per step, Newton and Krylov
-iterations, errors; phases 10 and 11 with the card), then the card's name
+the same run), before it the drivers' JSON records (phase 9's, phase 10's,
+phase 11's and phase 12's: DOFs, steps, seconds per step, Newton and Krylov
+iterations, errors; phases 10-12 with the card), then the card's name
 and power limit, and
 {"ok": true,
 "device": {...}}.  Imports no JAX.
@@ -759,7 +777,7 @@ def run_nonlinear_drivers(device, tmp, n_nl=128, n_ale=64, n_q=512,
 
 
 # figures of the JAX driver (cmfem_tpu.apps.ablation_case1, float64 on a
-# CPU) on phase 11's strip and deck after 10 steps of dt 0.1: the last rows
+# CPU) on phase 11's strip and deck after 6 steps of dt 0.1: the last rows
 # of out_c1/temperature_probes.csv (TC1..TC7) and out_c1/mass_metrics.csv
 # (m_dot_g_surf, front_98_virgin, front_2_char) and the linear solves per
 # step (rows per step of the Newton CSV, less one), from, in a scratch
@@ -769,26 +787,30 @@ def run_nonlinear_drivers(device, tmp, n_nl=128, n_ale=64, n_q=512,
 #              'strip.msh')"
 #   python -m cmfem_tpu.apps.ablation_case1 -i case1.yaml
 # case1.yaml: mesh_file: strip.msh, material_file: <the repo's
-# tests/fixtures/tacot_synthetic.json>, order: 1, dt: 0.1, t_final: 1.0,
+# tests/fixtures/tacot_synthetic.json>, order: 1, dt: 0.1, t_final: 0.6,
 # bdr_attr_top: 3, probe_x: 0.00125, newton_print_level: 0, save_paraview:
 # false, output_path: out_c1 (about 40 s).
-JAX_11A_PROBES = (1086.15727425637, 651.259838276897, 337.6568871383802,
-                  300.0841697056645, 300.0015950790275, 300.0015424898872,
-                  300.0015421583108)
-JAX_11A_MDOT = 0.03997015920668535
-JAX_11A_FRONTS = (0.001672498399892794, 0.0)
-JAX_11A_NEWTON = [4, 3, 3, 3, 3, 3, 3, 3, 3, 3]
+JAX_11A_PROBES = (929.5044206028347, 497.0586608917528, 309.3516108187271,
+                  300.006183837962, 300.0014071351998, 300.0014057685885,
+                  300.0014051202585)
+JAX_11A_MDOT = 0.04970705517568322
+JAX_11A_FRONTS = (0.001245085082024963, 0.0)
+JAX_11A_NEWTON = [4, 3, 3, 3, 3, 3]
 TACOT_DECK = os.path.join(ROOT, "tests", "fixtures", "tacot_synthetic.json")
 
 
-def csv_agree(path_a, path_b, rtol):
+def csv_agree(path_a, path_b, rtol, floors=None):
     """max over the CSV's values of |a - b| / (rtol |b| + 1e-12 max|b| of
     the column): <= 1 when they agree to ``rtol`` (the floor takes the
-    roundoff of values that are zero in one run, as the t = 0 mass flux)."""
+    roundoff of values that are zero in one run, as the t = 0 mass flux;
+    ``floors`` {column: factor} replaces 1e-12 for some columns)."""
     _, a = read_csv(path_a)
     _, b = read_csv(path_b)
     assert a.shape == b.shape, (path_a, a.shape, b.shape)
-    floor = 1e-12 * np.abs(b).max(axis=0)
+    factor = np.full(b.shape[1], 1e-12)
+    for j, f in (floors or {}).items():
+        factor[j] = f
+    floor = factor * np.abs(b).max(axis=0)
     return float(np.max(np.abs(a - b) / (rtol * np.abs(b) + floor + 1e-300)))
 
 
@@ -797,7 +819,7 @@ def split_median(timing, keys=("residual", "jacobian", "factorization",
     return {k: statistics.median(t.get(k, 0.0) for t in timing) for k in keys}
 
 
-def run_ablation_case1(device, tmp, nx=11, ny=239, steps=10, ref_levels=2,
+def run_ablation_case1(device, tmp, nx=11, ny=239, steps=6, ref_levels=2,
                        ref_steps=2, refs=True):
     """Phase 11: the case-1 ablation driver through ``run(cfg)`` on the
     graded TACOT strip (``make_strip_mesh_2d``) with the synthetic deck,
@@ -949,6 +971,243 @@ def run_ablation_case1(device, tmp, nx=11, ny=239, steps=10, ref_levels=2,
     return records
 
 
+# figures of the JAX driver (cmfem_tpu.apps.ablation_case2_1, float64 on a
+# CPU) on phase 12's strip, deck and schedule after 6 steps of dt 0.1: the
+# rows at t = 0.4 (the last blowing step) and t = 0.6 of
+# out_c21/temperature_probes.csv (wall, TC1..TC8), out_c21/mass_metrics.csv
+# (m_dot_g_surf, front_98_virgin, front_2_char) and
+# out_c21/boundary_diagnostics.csv (BprimeG_surf, q_conv_surf, q_surf), and
+# the linear solves per step, from the strip.msh of phase 11's command and
+#   python -m cmfem_tpu.apps.ablation_case2_1 -i case21.yaml
+# case21.yaml: case1.yaml's keys with t_final: 0.6, output_path: out_c21 and
+# boundary_conditions_file: <the repo's tests/fixtures/surface_bc_case21.dat>
+# (about a minute).
+JAX_12A = {
+    0.4: {"probes": [797.692897543996, 439.6375101003896, 327.6962934252517,
+                     300.6278392746127, 300.0001259954527, 300.0000093195238,
+                     300.0000092930709, 300.0000092690917,
+                     300.0000092403372],
+          "m_dot_g_surf": 0.001694075398190448,
+          "BprimeG_surf": 0.005662891762122673,
+          "q_conv_surf": 276004.9720749615, "q_surf": 255902.0255563865,
+          "fronts": [0.0, 0.0]},
+    0.6: {"probes": [580.3375977629103, 468.78946739739, 353.1402586345304,
+                     302.3403174893603, 300.0010860664635, 300.0000045096729,
+                     300.0000043089792, 300.0000043261628,
+                     300.0000043469352],
+          "m_dot_g_surf": 0.0003359999232541448, "BprimeG_surf": 0.0,
+          "q_conv_surf": -2803.375977629107, "q_surf": -7880.026329006657,
+          "fronts": [0.0, 0.0]}}
+JAX_12A_NEWTON = [3, 3, 3, 3, 3, 3]
+SCHEDULE_C21 = os.path.join(ROOT, "tests", "fixtures", "surface_bc_case21.dat")
+C21_ROW_KEYS = ("probes", "m_dot_g_surf", "BprimeG_surf", "q_conv_surf",
+                "q_surf", "fronts")
+
+
+def case21_rows(out_dir):
+    """{t: {probes, m_dot_g_surf, BprimeG_surf, q_conv_surf, q_surf,
+    fronts}} of a case-2.1 run's output rows at t = 0.4 and the last t."""
+    _, probes = read_csv(os.path.join(out_dir, "temperature_probes.csv"))
+    _, mass = read_csv(os.path.join(out_dir, "mass_metrics.csv"))
+    hdr, bdr = read_csv(os.path.join(out_dir, "boundary_diagnostics.csv"))
+    col = {k: hdr.index(k) for k in ("BprimeG_surf", "q_conv_surf",
+                                     "q_surf")}
+    rows = {}
+    for i in sorted({int(np.argmin(np.abs(probes[:, 0] - 0.4))),
+                     len(probes) - 1}):
+        rows[round(float(probes[i, 0]), 6)] = {
+            "probes": [float(v) for v in probes[i, 1:]],
+            "m_dot_g_surf": float(mass[i, 1]),
+            **{k: float(bdr[i, j]) for k, j in col.items()},
+            "fronts": [float(mass[i, 3]), float(mass[i, 4])]}
+    return rows
+
+
+def rows_rel_diff(got, ref):
+    """max relative difference of two ``case21_rows`` (absolute where the
+    reference value is 0)."""
+    d = 0.0
+    for t, r in ref.items():
+        for k in C21_ROW_KEYS:
+            a, b = np.atleast_1d(got[t][k]), np.atleast_1d(r[k])
+            d = max(d, float(np.max(np.where(
+                b != 0, np.abs(a - b) / np.where(b != 0, np.abs(b), 1.0),
+                np.abs(a)))))
+    return d
+
+
+def ms_per_call(device, fn, reps=5):
+    """Median ms of one call between CUDA events (host clock on a CPU)."""
+    if torch.device(device).type == "cuda":
+        return median_ms(fn, reps=reps, warmup=2)
+    return 1e3 * timed(fn)[1]
+
+
+def run_ablation_case21(device, tmp, nx=11, ny=239, steps=6, refs=True):
+    """Phase 12: the case-2.1 ablation driver through ``run(cfg)`` on phase
+    11's strip with the synthetic deck and B' table and the schedule
+    fixture (steps 1-4 on the chemistry-blowing branch, step 4 on the 0.4 s
+    node, 5-6 cooling), float64; returns the ``ablation_case2_1`` records.
+    The sizes are arguments so that the control flow can be rehearsed small
+    on a CPU; ``refs`` holds (a) to the JAX driver's figures above, which
+    belong to the default sizes only."""
+    from cmfem_tpu_torch.apps import ablation_case2_1
+    from cmfem_tpu_torch.core import make_strip_mesh_2d
+
+    strip = write_gmsh(make_strip_mesh_2d(nx, ny), os.path.join(tmp,
+                                                                "strip.msh"))
+    out = lambda name: os.path.join(tmp, name)
+    base = {"mesh_file": strip, "material_file": TACOT_DECK,
+            "boundary_conditions_file": SCHEDULE_C21, "order": 1, "dt": 0.1,
+            "t_final": steps * 0.1, "bdr_attr_top": 3, "probe_x": 0.00125,
+            "newton_print_level": 0, "save_paraview": False,
+            "output_every": 3}
+    records = []
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def drive(label, cfg):
+        reset_counts()
+        r, secs = timed(lambda: ablation_case2_1.run(cfg, device=device))
+        assert not any(counts().values()), counts()
+        assert r["converged"] and np.isfinite(r["T"]).all()
+        per_step = statistics.median(t["total"] for t in r["timing"])
+        split = split_median(r["timing"])
+        log(f"phase 12{label}: {2 * r['fes'].nscalar} DOFs, "
+            f"{len(r['timing'])} steps, run {secs:.2f} s, median "
+            f"{per_step:.4f} s/step; Newton split (median s/step): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; linear solves per step {r['newton_iters']}")
+        return r, secs, per_step, split
+
+    # -- 12a. the eager path: host splu over the element and face blocks,
+    # jacobian_check at step 1 and once per flux branch, a checkpoint at
+    # t = 0.3
+    ra, secs, per_step, split = drive("a host LU", {
+        **base, "jacobian_check": True, "output_path": out("c21_lu"),
+        "restart_write_file": out("c21.chk"), "restart_write_at_time": 0.3,
+        "restart_write_at_end": False})
+    jc = ra["jacobian_check"]
+    log(f"phase 12a: jacobian_check: {jc}")
+    assert jc["chemistry_blowing"] is None            # B'g = 0 clamps
+    assert 0.0 <= jc["domain"] < 1e-4 and 0.0 <= jc["cooling_standard"] < 1e-4
+    rows = case21_rows(out("c21_lu"))
+    log(f"phase 12a: rows {json.dumps(rows)}")
+    d_jax = None
+    if refs:
+        d_jax = rows_rel_diff(rows, JAX_12A)
+        log(f"phase 12a: vs the JAX driver's figures: max relative "
+            f"difference {d_jax:.3e} (tol 1e-7); linear solves per step "
+            f"{ra['newton_iters']} vs {JAX_12A_NEWTON}")
+        assert d_jax <= 1e-7 and ra["newton_iters"] == JAX_12A_NEWTON, d_jax
+
+    # -- 12b. scan_stepping: BlockTridiagDirect with the SEB face blocks,
+    # writing a checkpoint at t = 0.2
+    rb, secs_b, per_step_b, split_b = drive("b scan_stepping", {
+        **base, "scan_stepping": True, "output_path": out("c21_scan"),
+        "restart_write_file": out("c21_2.chk"), "restart_write_at_time": 0.2,
+        "restart_write_at_end": False})
+    assert rb["linear_solver"] == "BlockTridiagDirect"
+    d_csv = max(csv_agree(os.path.join(out("c21_scan"), name),
+                          os.path.join(out("c21_lu"), name), 1e-8)
+                for name in ("temperature_probes.csv", "mass_metrics.csv",
+                             "boundary_diagnostics.csv"))
+    # the Newton CSV: the residual and update columns beside the solves'
+    # floor (1e-9 of the column's largest value)
+    newton = "newton_history_ablation_case2_1_2D.csv"
+    d_newton = csv_agree(os.path.join(out("c21_scan"), newton),
+                         os.path.join(out("c21_lu"), newton), 1e-8,
+                         floors={3: 1e-9, 5: 1e-9, 6: 1e-9, 8: 1e-9})
+    log(f"phase 12b: CSVs vs 12a: max |d| / (1e-8 |a| + floor) = "
+        f"{d_csv:.3f}, Newton CSV {d_newton:.3f} (<= 1)")
+    assert d_csv <= 1.0 and d_newton <= 1.0, (d_csv, d_newton)
+    assert rb["newton_iters"] == ra["newton_iters"]
+
+    # the blowing branch's face blocks on the card: jacobian_check at the
+    # state after step 2 (12b's checkpoint), bc at t = 0.3, dt 0.1, where
+    # B'g lies inside the table
+    c = ablation_case2_1.Case21({**base, "output_path": out("c21_jc")},
+                                device, torch.float64)
+    _, _, T2, p2, X2 = ablation_case2_1.load_restart(
+        out("c21_2.chk"), c.n, c.sys.ne, c.sys.nq, c.mat.num_reactions)
+    tens = lambda a: torch.as_tensor(a, device=device)
+    T2, p2, X2 = tens(T2), tens(p2), tens(X2)
+    To, po = c.ops.values_at_qp(T2), c.ops.values_at_qp(p2)
+    bc3, branch3 = c.boundary(0.3)
+    T3, p3 = c.enforce_bc(T2, p2, bc3, 0.3)
+    reset_counts()
+    jc_blow = c.sys.jacobian_check(T3, p3, To, po, X2, 0.1,
+                                   seb=c.seb(branch3), bc=bc3)
+    bg = float(c.boundary_values(T3, p3, X2, bc3, branch3)[
+        c.sys.BOUNDARY_VALUE_KEYS.index("BprimeG_surf")])
+    log(f"phase 12b: jacobian_check (domain+face, branch={branch3}) at the "
+        f"state after step 2: max rel err {jc_blow}; B'g {bg:.4e}")
+    assert branch3 == "chemistry_blowing" and jc_blow is not None \
+        and jc_blow < 1e-4 and 1e-4 < bg < 10.0, (jc_blow, bg)
+
+    # the pieces alone at that state: element and face Jacobians, one B'
+    # lookup at the face quadrature points, one diagnostics row
+    args = (T3, p3, To, po, X2, 0.1)
+    jac_ms = ms_per_call(device, lambda: c.sys.element_jacobians(*args))
+    face_ms = ms_per_call(device, lambda: c.face_jacobians(T3, p3, X2, bc3,
+                                                           branch3))
+    res_ms = ms_per_call(device, lambda: c.residual(*args, bc3, branch3))
+    nqf = tuple(c.sys.trace.values(T3).shape)
+    Tw = c.sys.trace.values(T3)
+    bgq = torch.full(nqf, bg, dtype=Tw.dtype, device=Tw.device)
+    pwq = torch.full(nqf, bc3.p_w, dtype=Tw.dtype, device=Tw.device)
+    lut_ms = ms_per_call(device, lambda: c.bprime.lookup(pwq, bgq, Tw))
+    diag_ms = ms_per_call(device, lambda: c.boundary_values(
+        T3, p3, X2, bc3, branch3).cpu())
+    assert not any(counts().values()), counts()
+    c.finish({k: 0.0 for k in ("bc", "residual", "jacobian",
+                               "factorization", "linear", "update", "state",
+                               "output", "newton", "total")}, 0.0)
+    log(f"phase 12b: ms per call (CUDA events): element Jacobians "
+        f"{jac_ms:.2f}, face Jacobians {face_ms:.2f}, residual with the SEB "
+        f"face term {res_ms:.2f}, B' lookup at the {nqf} face QPs "
+        f"{lut_ms:.3f} (one per residual), diagnostics row with its "
+        f"read-back {diag_ms:.3f}")
+    del c, T2, p2, X2, To, po, T3, p3
+
+    # -- 12c. the restart: an eager run from 12a's t = 0.3 checkpoint
+    rc, secs_c, per_step_c, split_c = drive("c restart", {
+        **base, "output_path": out("c21_rs"),
+        "restart_read_file": out("c21.chk")})
+    dT = float(np.abs(rc["T"] - ra["T"]).max())
+    dp = float(np.max(np.abs(rc["p"] - ra["p"]) / np.abs(ra["p"])))
+    log(f"phase 12c: resumed at t = 0.3 to t = {rc['time']:.3f}: final "
+        f"max|dT| {dT:.3e} K (tol 2e-5), max |dp|/|p| {dp:.3e} (tol 1e-7)")
+    assert rc["step"] == steps and dT <= 2e-5 and dp <= 1e-7, (dT, dp)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+            else float("nan"))
+    log(f"phase 12: peak device memory {peak:.3f} GiB")
+
+    records.append({
+        "driver": "ablation_case2_1", "variant": "host LU (splu)",
+        "dofs": 2 * ra["fes"].nscalar, "steps": len(ra["timing"]),
+        "run_s": secs, "s_per_step": per_step, "newton_split_s": split,
+        "newton_iters_per_step": ra["newton_iters"], "jacobian_check": jc,
+        "rows": rows, "vs_jax": d_jax, "peak_mem_gib": peak})
+    records.append({
+        "driver": "ablation_case2_1", "variant": "scan_stepping (block QR)",
+        "dofs": 2 * rb["fes"].nscalar, "steps": len(rb["timing"]),
+        "run_s": secs_b, "s_per_step": per_step_b, "newton_split_s": split_b,
+        "newton_iters_per_step": rb["newton_iters"],
+        "krylov_iters_per_solve": rb["krylov_iters"],
+        "csv_vs_host_lu": d_csv, "newton_csv_vs_host_lu": d_newton,
+        "blowing_jacobian_check": jc_blow,
+        "ms_per_call": {"element_jacobians": jac_ms, "face_jacobians":
+                        face_ms, "residual": res_ms, "bprime_lookup": lut_ms,
+                        "diagnostics_row": diag_ms}})
+    records.append({
+        "driver": "ablation_case2_1", "variant": "restart from t = 0.3",
+        "steps": len(rc["timing"]), "run_s": secs_c,
+        "s_per_step": per_step_c, "max_abs_dT": dT, "max_rel_dp": dp})
+    return records
+
+
 def ablation_residual_in_turns(device, r):
     """The case-1 residual at a run's final state, through the generic path
     (gather, index_add_) and the lattice path (strided windows), in turns
@@ -983,13 +1242,10 @@ def ablation_residual_in_turns(device, r):
 
     for a, b in zip(call("generic"), call("lattice")):
         assert rel_err(b, a) <= 1e-12, rel_err(b, a)
-    cuda = torch.device(device).type == "cuda"
     paths = {}
     for path in ("generic", "lattice", "lattice", "generic"):
-        fn = lambda: call(path)
         paths.setdefault(path, []).append(
-            median_ms(fn, reps=10, warmup=2) if cuda
-            else 1e3 * timed(fn)[1])
+            ms_per_call(device, lambda: call(path), reps=10))
     return paths
 
 
@@ -1592,6 +1848,13 @@ def main():
                     for rec in run_ablation_case1(dev, tmp)]
     log(f"phase 11: {time.perf_counter() - t11:.1f} s (budget 45 s)")
 
+    # -- 12. slice 9: the charring-ablator case 2.1 --------------------------
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ablation21 = [{**rec, "card": smi}
+                      for rec in run_ablation_case21(dev, tmp)]
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s (budget 30 s)")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
@@ -1608,6 +1871,7 @@ def main():
     log(json.dumps({"drivers": drivers}))
     log(json.dumps({"nonlinear_drivers": nonlinear}))
     log(json.dumps({"ablation_case1": ablation}))
+    log(json.dumps({"ablation_case2_1": ablation21}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,

@@ -136,7 +136,16 @@ class Case1:
     """The set-up of a case-1 run, shared by the eager and scan paths (and
     by the smoke run and the profiler, which drive its pieces alone):
     config, material, mesh, space, system, essential DOFs, the probe and
-    front stencils, the CSV streams."""
+    front stencils, the CSV streams.  Case 2.1 (``ablation_case2_1.Case21``)
+    derives from it and replaces the boundary set-up (``_init_boundary``),
+    the essential T DOFs (``ess_T``), the probe points and the CSVs."""
+
+    NAME = "ablation_case1"
+    DEFAULTS = {"material_file": "Input/material_tacot_case1.yaml",
+                "output_path": "ParaView/ablation_case1",
+                "collection_name": "ablation_test_case1_2D",
+                "probe_y": [0.05, 0.049, 0.048, 0.046, 0.042, 0.038, 0.034,
+                            0.026]}
 
     def __init__(self, cfg, device, dtype):
         from ..core import FESpace
@@ -147,37 +156,33 @@ class Case1:
         from ..physics.tacot import TacotMaterial
 
         if dtype != torch.float64:
-            raise ValueError("ablation_case1 runs in float64 only (the "
+            raise ValueError(f"{self.NAME} runs in float64 only (the "
                              "equilibrated Newton systems measure cond "
                              "~1e15)")
         self.cfg = cfg
         self.device, self.dtype = device, dtype
         self.material_file = resolve_path(
-            cfg, cfg.get("material_file", "Input/material_tacot_case1.yaml"))
+            cfg, cfg.get("material_file", self.DEFAULTS["material_file"]))
         self.order = int(cfg.get("order", 1))
         self.dt = float(cfg.get("dt", 1.0e-2))
         self.t_final = float(cfg.get("t_final", 120.0))
         self.output_every = int(cfg.get("output_every", 10))
         if self.output_every < 1:
             raise ValueError("output_every must be >= 1")
-        self.output_path = cfg.get("output_path", "ParaView/ablation_case1")
+        self.output_path = cfg.get("output_path",
+                                   self.DEFAULTS["output_path"])
         self.collection_name = cfg.get("collection_name",
-                                       "ablation_test_case1_2D")
+                                       self.DEFAULTS["collection_name"])
         self.save_paraview = bool(cfg.get("save_paraview", True))
         self.bdr_top = int(cfg.get("bdr_attr_top", 1))
-        self.top_pressure = float(cfg.get("top_pressure", 101325.0))
-        schedule = cfg.get("top_temperature_schedule", DEFAULT_SCHEDULE)
-        self.schedule = sorted([[float(a), float(b)] for a, b in schedule])
         gravity = (float(cfg.get("gravity_x", 0.0)),
                    float(cfg.get("gravity_y", 0.0)))
-        probe_x = float(cfg.get("probe_x", 0.005))
+        self.probe_x = float(cfg.get("probe_x", 0.005))
         self.probe_y = [float(v) for v in cfg.get(
-            "probe_y", [0.05, 0.049, 0.048, 0.046, 0.042, 0.038, 0.034,
-                        0.026])]
+            "probe_y", self.DEFAULTS["probe_y"])]
         if self.dt <= 0 or self.t_final < 0 or self.order < 1:
             raise ValueError("invalid dt/t_final/order")
-        if not self.schedule:
-            raise ValueError("top_temperature_schedule cannot be empty.")
+        self._init_boundary(cfg)
 
         self.mat = TacotMaterial.load_yaml(self.material_file)
         self.mesh = mesh = maybe_reorder_strip_mesh(cfg,
@@ -195,16 +200,16 @@ class Case1:
         maybe_enable_lattice_residual(cfg, self.sys, fes)
 
         self.ess = np.asarray(fes.boundary_dofs([self.bdr_top]))
+        self.ess_T = self._ess_T()
         mask2 = np.zeros(2 * n, dtype=bool)
-        mask2[self.ess] = True
+        mask2[self.ess_T] = True
         mask2[self.ess + n] = True
         self.mask2 = mask2
         self.mask2_t = torch.as_tensor(mask2, device=device)
         self.ess_t = torch.as_tensor(self.ess, device=device)
 
         # fixed probe points and front line: located once (static mesh)
-        probe_pts = np.array([[probe_x, y] for y in self.probe_y[1:]])
-        pdofs, pweights = h1_sampling_stencil(fes, probe_pts)
+        pdofs, pweights = h1_sampling_stencil(fes, self._probe_points())
         self.pdofs = torch.as_tensor(pdofs, device=device)
         self.pweights = torch.as_tensor(pweights, dtype=dtype, device=device)
         self.front_line = front_line_stencil(mesh, xmid, self.hi[1],
@@ -212,12 +217,37 @@ class Case1:
         self.nsteps = num_steps(self.t_final, self.dt)
 
         ensure_outdir(self.output_path)
-        (self.probes_csv, self.mass_csv, self.newton_csv,
-         self.timing_csv) = _make_case1_csvs(cfg, self.output_path,
-                                             self.probe_y)
+        self._make_csvs()
         self.dc = VTUCollection(self.collection_name, fes,
                                 prefix_path=self.output_path) \
             if self.save_paraview else None
+
+    # -- the case-specific pieces ------------------------------------------
+
+    def _init_boundary(self, cfg):
+        """The top boundary's data: the wall-temperature schedule and the
+        top pressure."""
+        self.top_pressure = float(cfg.get("top_pressure", 101325.0))
+        schedule = cfg.get("top_temperature_schedule", DEFAULT_SCHEDULE)
+        self.schedule = sorted([[float(a), float(b)] for a, b in schedule])
+        if not self.schedule:
+            raise ValueError("top_temperature_schedule cannot be empty.")
+
+    def _ess_T(self):
+        """Essential T DOFs: the top boundary (Dirichlet wall)."""
+        return self.ess
+
+    def _probe_points(self):
+        """The probes below the wall (the CSV's wall column is the
+        schedule's value)."""
+        return np.array([[self.probe_x, y] for y in self.probe_y[1:]])
+
+    def _make_csvs(self):
+        (self.probes_csv, self.mass_csv, self.newton_csv,
+         self.timing_csv) = _make_case1_csvs(self.cfg, self.output_path,
+                                             self.probe_y)
+        self.csvs = [self.probes_csv, self.mass_csv, self.newton_csv,
+                     self.timing_csv]
 
     def initial_state(self):
         from ..physics.ablation import AblationState
@@ -225,22 +255,33 @@ class Case1:
         return AblationState.initial(self.sys.ne, self.sys.nq, self.mat,
                                      device=self.device, dtype=self.dtype)
 
-    def host_lu(self, blocks):
+    def host_lu(self, blocks, face=None):
         """scipy ``splu`` of the BC-eliminated 2n x 2n Jacobian assembled
-        from the element blocks copied to the host (the reference's MUMPS
+        from the element blocks (and the boundary-face blocks of the T
+        rows, ``face=(FJT, FJp)``) copied to the host (the reference's MUMPS
         LU analog); ``.solve(rhs)`` takes and returns device tensors."""
         n = self.n
         if not hasattr(self, "_rows_cols"):
-            # static sparsity structure of the 2x2 block Jacobian
-            ed = np.asarray(self.fes.element_dofs, dtype=np.int64)
-            nd = ed.shape[1]
-            rows_b = np.repeat(ed, nd, axis=1).reshape(-1)
-            cols_b = np.tile(ed, (1, nd)).reshape(-1)
+            # static sparsity structure of the 2x2 block Jacobian and of the
+            # face blocks (T rows only)
+            pattern = lambda ed: (np.repeat(ed, ed.shape[1], axis=1)
+                                  .reshape(-1),
+                                  np.tile(ed, (1, ed.shape[1])).reshape(-1))
+            rows_b, cols_b = pattern(np.asarray(self.fes.element_dofs,
+                                                dtype=np.int64))
             self._rows_cols = (
                 np.concatenate([rows_b, rows_b, rows_b + n, rows_b + n]),
                 np.concatenate([cols_b, cols_b + n, cols_b, cols_b + n]))
+            rows_f, cols_f = pattern(self.sys.trace.eldofs.cpu().numpy())
+            self._face_rows_cols = (np.concatenate([rows_f, rows_f]),
+                                    np.concatenate([cols_f, cols_f + n]))
+        rows, cols = self._rows_cols
+        if face is not None:
+            blocks = tuple(blocks) + tuple(face)
+            rows = np.concatenate([rows, self._face_rows_cols[0]])
+            cols = np.concatenate([cols, self._face_rows_cols[1]])
         vals = torch.cat([b.reshape(-1) for b in blocks]).cpu().numpy()
-        J = sp.coo_matrix((vals, self._rows_cols),
+        J = sp.coo_matrix((vals, (rows, cols)),
                           shape=(2 * n, 2 * n)).tocsr()
         # essential elimination: identity rows/cols
         d = sp.diags((~self.mask2).astype(np.float64))
@@ -304,10 +345,13 @@ class Case1:
 
     def finish(self, totals, wall):
         _write_tolerances_csv(self.cfg, self.output_path)
+        self.close(totals, wall)
+
+    def close(self, totals, wall):
+        """The timing summary, then every CSV stream closed."""
         _write_timing_summary(self.cfg, self.output_path, totals,
                               self.nsteps, wall)
-        for w in (self.probes_csv, self.mass_csv, self.newton_csv,
-                  self.timing_csv):
+        for w in self.csvs:
             w.close()
 
     def timing_row(self, step, rec):

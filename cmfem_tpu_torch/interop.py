@@ -20,6 +20,11 @@ tensors here, so both packages can be made to compute the same thing:
   packages compute the ablation residual and Jacobian from one state (the
   material crosses as the same deck mapping, ``TacotMaterial.from_mapping``).
 
+A case-2.1 run's state crosses as a restart checkpoint: the port's
+``apps.ablation_case2_1.save_restart``/``load_restart`` write and read the
+JAX driver's npz keys and dtypes, so either package resumes from the
+other's checkpoint.
+
 ``lattice_index`` is the entity -> lattice DOF permutation of a
 ``make_cartesian_mesh_3d`` space, taken from the topology (element
 numbering and local tensor indices), not from node positions, so it holds

@@ -11,12 +11,16 @@ reference's ``AblationTPIntegrator`` + ``ReactionStateManager``):
   AD differentiates through the extent Newton);
 - element Jacobian blocks by ``torch.func.vmap(torch.func.jacfwd(...))``;
 - element-average diagnostics and the top-boundary Darcy mass-flux
-  diagnostic.
+  diagnostic;
+- the surface-energy-balance (SEB) face residual of case 2.1, its face
+  Jacobian blocks by ``vmap(jacfwd)`` over the boundary faces, and the
+  area-averaged boundary terms.
 
 Everything is batched over (ne, nq) on the device of the ``SpaceOps``.  The
-case-2 parts of the JAX module (the SEB face terms and their Jacobians,
-the recession velocity, the mass-equation probes) raise
-``NotImplementedError`` here until their slices port them.
+case-2.2 parts of the JAX module (the recession velocity, the
+mass-equation probes) raise ``NotImplementedError`` here until their slice
+ports them.  The boundary diagnostics run eagerly: the JAX package caches
+one jitted program per flux branch, which has no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,8 +36,6 @@ from .tacot import TacotMaterial
 
 MU_FLOOR = 1.0e-12
 
-_CASE21 = ("the SEB surface terms belong to ablation case 2.1, which is not "
-           "ported yet (ROADMAP queue A item 14, the case-2.1 slice)")
 _CASE22 = ("the recession and mass-probe diagnostics belong to ablation case "
            "2.2, which is not ported yet (ROADMAP queue A item 16, the "
            "case-2.2 slice)")
@@ -280,12 +282,35 @@ class AblationSystem:
         jacobian_check): the element-block-assembled Jacobian action J v is
         compared against a central finite-difference directional derivative
         of the global residual for n_dirs random directions.  Raises with
-        the argmax row on mismatch; returns the max relative error.  The
-        SEB face blocks (``seb``) belong to case 2.1 and raise."""
+        the argmax row on mismatch; returns the max relative error.
+
+        With ``seb=(branch, model, bprime)`` and ``bc`` the SEB face blocks
+        are assembled into the test matrix and the face residual into R,
+        and the face blocks are then checked alone against an FD of the
+        face residual, with their own scale (a direction that fails is
+        retried once at h/8 with a fresh direction: a central difference
+        straddling an interior spline knot shrinks with h, a Jacobian
+        error does not).  States where the B' table clamps with chemistry
+        on (non-smooth: the central FD straddles the kink the AD zeroes on
+        one side) are skipped: returns None when ``skip_nonsmooth``.  The
+        directions come from ``numpy.random.default_rng(seed)``, in the
+        JAX package's order."""
         import scipy.sparse as sp
 
         if seb is not None:
-            raise NotImplementedError(_CASE21)
+            branch, model, bprime = seb
+            chem_on = bc is not None and int(bc.chemistryOn) != 0
+            if skip_nonsmooth and bprime is not None and chem_on:
+                # clamps make the residual non-smooth only when the B'
+                # outputs enter the flux (chemistry on)
+                Xrep = X_old[self._trace_elem, 0]
+                terms = self.top_boundary_terms(T, p, Xrep, bc, branch,
+                                                model, bprime,
+                                                vertices=vertices)
+                nclamp = float(terms["clamps_p"] + terms["clamps_bg"]
+                               + terms["clamps_t"])
+                if nclamp > 0:
+                    return None
         blocks = self.element_jacobians(T, p, T_old_q, p_old_q, X_old, dt,
                                         gf=gf, wq=wq, gcl=gcl,
                                         ale_toggles=ale_toggles)
@@ -296,23 +321,45 @@ class AblationSystem:
         cols_b = np.tile(ed, (1, nd)).reshape(-1)
         rows = np.concatenate([rows_b, rows_b, rows_b + n, rows_b + n])
         cols = np.concatenate([cols_b, cols_b + n, cols_b, cols_b + n])
-        vals = np.concatenate([b.cpu().numpy().reshape(-1) for b in blocks])
+        host = lambda b: b.detach().cpu().numpy().reshape(-1)
+        vals = np.concatenate([host(b) for b in blocks])
+        if seb is not None:
+            JTf, Jpf = self.seb_face_jacobians(T, p, X_old, bc, branch,
+                                               model, bprime,
+                                               vertices=vertices)
+            fed = self.trace.eldofs.cpu().numpy()
+            ndf = fed.shape[1]
+            rows_f = np.repeat(fed, ndf, axis=1).reshape(-1)
+            cols_f = np.tile(fed, (1, ndf)).reshape(-1)
+            face_vals = np.concatenate([host(JTf), host(Jpf)])
+            rows = np.concatenate([rows, rows_f, rows_f])
+            cols = np.concatenate([cols, cols_f, cols_f + n])
+            vals = np.concatenate([vals, face_vals])
         J = sp.coo_matrix((vals, (rows, cols)), shape=(2 * n, 2 * n)).tocsr()
         dev, dtype = T.device, T.dtype
+        tens = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
 
         def R(x):
-            xt = torch.as_tensor(x, dtype=dtype, device=dev)
+            xt = tens(x)
             RT, Rp = self.residual(xt[:n], xt[n:], T_old_q, p_old_q, X_old,
                                    dt, gf=gf, wq=wq, gcl=gcl,
                                    ale_toggles=ale_toggles)
+            if seb is not None:
+                RT = RT + self.seb_face_residual(xt[:n], xt[n:], X_old, bc,
+                                                 branch, model, bprime,
+                                                 vertices=vertices)
             return torch.cat([RT, Rp]).cpu().numpy()
 
         x0 = torch.cat([T, p]).cpu().numpy()
         rng = np.random.default_rng(seed)
+
+        def direction():
+            v = rng.standard_normal(2 * n)
+            return v * np.maximum(1.0, np.abs(x0)) / np.linalg.norm(v)
+
         max_rel = 0.0
         for _ in range(n_dirs):
-            v = rng.standard_normal(2 * n)
-            v *= np.maximum(1.0, np.abs(x0)) / np.linalg.norm(v)
+            v = direction()
             h = fd_eps
             fd = (R(x0 + h * v) - R(x0 - h * v)) / (2 * h)
             jv = J @ v
@@ -326,6 +373,42 @@ class AblationSystem:
                     f"Jacobian check failed at row {i}: "
                     f"AD(Jv)={jv[i]:.6e} FD={fd[i]:.6e} "
                     f"(abs err {err[i]:.3e}, scale {scale:.3e})")
+
+        if seb is not None:
+            # the face blocks alone, with their own scale (a face error
+            # hidden under the global residual's scale would pass above)
+            Jf = sp.coo_matrix(
+                (face_vals, (np.concatenate([rows_f, rows_f]),
+                             np.concatenate([cols_f, cols_f + n]))),
+                shape=(n, 2 * n)).tocsr()
+
+            def Rf(x):
+                xt = tens(x)
+                return self.seb_face_residual(
+                    xt[:n], xt[n:], X_old, bc, branch, model, bprime,
+                    vertices=vertices).cpu().numpy()
+
+            def face_dir_check(v, h):
+                fd = (Rf(x0 + h * v) - Rf(x0 - h * v)) / (2 * h)
+                jv = Jf @ v
+                err = np.abs(jv - fd)
+                scale = max(float(np.abs(fd).max()), 1.0)
+                return err, jv, fd, scale
+
+            for _ in range(n_dirs):
+                err, jv, fd, scale = face_dir_check(direction(), fd_eps)
+                if err.max() > (abs_tol + rel_tol) * scale:
+                    err2, jv2, fd2, scale2 = face_dir_check(direction(),
+                                                            fd_eps / 8)
+                    if err2.max() > (abs_tol + rel_tol) * scale2:
+                        i = int(err2.argmax())
+                        raise RuntimeError(
+                            f"Jacobian check failed at face row {i} "
+                            f"(branch={branch}): AD(Jv)={jv2[i]:.6e} "
+                            f"FD={fd2[i]:.6e} (abs err {err2[i]:.3e}, "
+                            f"scale {scale2:.3e})")
+                    continue
+                max_rel = max(max_rel, float(err.max()) / scale)
         return max_rel
 
     def advance_state_arrays(self, X_old, T, p, dt):
@@ -395,22 +478,166 @@ class AblationSystem:
         return torch.where(area > 0, flux_int / area,
                            torch.full_like(area, float("nan")))
 
-    # -- case 2.1 / 2.2 (not ported yet) ------------------------------------
+    # -- surface energy balance (case 2.1) ---------------------------------
 
-    def seb_face_residual(self, *args, **kwargs):
-        raise NotImplementedError(_CASE21)
+    def _seb_face_qp(self, Tw, pw, gpw, Xrep, normal, bc, branch, model,
+                     bprime, count_clamps=False):
+        """Flux terms at face QPs given trace values (batched (nbf, nqf))."""
+        from .seb import surface_flux
 
-    def seb_face_res_fn(self, *args, **kwargs):
-        raise NotImplementedError(_CASE21)
+        mat = self.mat
+        Xf = torch.broadcast_to(Xrep[:, None, :],
+                                Tw.shape + (Xrep.shape[-1],))
+        solid = mat.solid_props(Tw, pw, Xf)
+        gas = mat.gas_props(Tw, pw)
+        mu = torch.clamp(gas["mu"], min=MU_FLOOR)
+        rho_darcy = gas["rho"] * solid["K"] / mu
+        rho2_darcy = gas["rho"] * rho_darcy
+        mflux = (-rho_darcy[..., None] * gpw
+                 + rho2_darcy[..., None] * self.gravity)
+        m_dot_g_w = torch.sum(mflux * normal, dim=-1)
+        emissivity = torch.full_like(Tw, model.emissivity_override) \
+            if model.use_emissivity_override else solid["emissivity"]
+        absorptivity = torch.full_like(Tw, model.absorptivity_override) \
+            if model.use_absorptivity_override else solid["absorptivity"]
+        terms = surface_flux(m_dot_g_w, gas["h"], Tw, emissivity,
+                             absorptivity, solid["reflectivity"], bc, branch,
+                             model, bprime, count_clamps=count_clamps)
+        terms["m_dot_g_w"] = m_dot_g_w
+        terms["rho_s"] = solid["rho_s"]
+        return terms
 
-    def seb_face_jacobians(self, *args, **kwargs):
-        raise NotImplementedError(_CASE21)
+    def _wall_grads(self, p, vertices=None):
+        """(nbf, nqf, dim) wall gradients of p, contracted from each face
+        element's values less its first one: a uniform p (the first Newton
+        iterate) gives exactly 0, as the JAX package's contraction does,
+        so the wall mass flux sits exactly on ``solve_blowing``'s
+        max(raw, 0) tie there (a plain contraction leaves ~1e-12 of |p|)."""
+        tr = self.trace
+        p_e = p[tr.eldofs]
+        gref = torch.einsum("fqnr,fn->fqr", tr.Gtab[tr._combo_t],
+                            p_e - p_e[:, :1])
+        return torch.sum(tr.element_invJ(vertices) * gref[..., :, None],
+                         dim=-2)
 
-    def top_boundary_terms(self, *args, **kwargs):
-        raise NotImplementedError(_CASE21)
+    def seb_face_residual(self, T, p, extent, bc, branch, model, bprime,
+                          vertices=None):
+        """R_T contribution of the SEB boundary integrator:
+        R_T[i] -= int q_surf psi_i ds over the top boundary."""
+        tr = self.trace
+        ff = tr.face_factors(vertices)
+        terms = self._seb_face_qp(tr.values(T), tr.values(p),
+                                  self._wall_grads(p, vertices),
+                                  extent[self._trace_elem, 0], ff.normal, bc,
+                                  branch, model, bprime)
+        return -tr.scatter(terms["q_surf"] * ff.wdS)
 
-    def top_boundary_diagnostics(self, *args, **kwargs):
-        raise NotImplementedError(_CASE21)
+    def seb_face_res_fn(self, bc, branch, model, bprime):
+        """Single-face SEB residual closure ``face_res(elT, elp, B, G, iJ,
+        nrm, wdS, Xr) -> rT (nd,)`` for the AD face Jacobians (the wall
+        gradient as in ``_wall_grads``); ``bc``,
+        ``branch``, ``model`` and ``bprime`` come from the closure.  It
+        never scatters (``vmap`` refuses an in-place ``index_add_`` into an
+        unbatched target)."""
+
+        def face_res(elT, elp, B, G, iJ, nrm, wdS, Xr):
+            Tw = (B @ elT)[None]
+            pw = (B @ elp)[None]
+            gref = torch.einsum("qnr,n->qr", G, elp - elp[0])
+            gpw = torch.sum(iJ * gref[..., :, None], dim=-2)[None]
+            terms = self._seb_face_qp(Tw, pw, gpw, Xr[None], nrm[None], bc,
+                                      branch, model, bprime)
+            return -(B.T @ (terms["q_surf"][0] * wdS))
+
+        return face_res
+
+    def seb_face_jacobians(self, T, p, extent, bc, branch, model, bprime,
+                           vertices=None):
+        """(nbf, nd, nd) x2 face Jacobian blocks d(rT_face)/d(elT, elp), all
+        faces in one ``vmap(jacfwd)``."""
+        tr = self.trace
+        ff = tr.face_factors(vertices)
+        face_res = self.seb_face_res_fn(bc, branch, model, bprime)
+        jacf = torch.func.vmap(torch.func.jacfwd(face_res, argnums=(0, 1)))
+        return jacf(T[tr.eldofs], p[tr.eldofs], tr.Btab[tr._combo_t],
+                    tr.Gtab[tr._combo_t], tr.element_invJ(vertices),
+                    ff.normal, ff.wdS, extent[self._trace_elem, 0])
+
+    _SURF_KEYS = ("m_dot_c_surf", "rho_s_surf", "BprimeG_surf",
+                  "BprimeC_surf", "h_w_surf", "emissivity_surf",
+                  "absorptivity_surf", "reflectivity_surf",
+                  "blowing_correction_surf", "q_conv_surf",
+                  "q_adv_pyro_surf", "q_rad_emit_surf", "q_rad_abs_surf",
+                  "q_surf")
+    _CLAMP_KEYS = ("clamps_p", "clamps_bg", "clamps_t")
+    BOUNDARY_VALUE_KEYS = ("m_dot_g_surf",) + _SURF_KEYS + ("area",) \
+        + _CLAMP_KEYS
+
+    def top_boundary_terms(self, T, p, Xrep, bc, branch, model, bprime,
+                           vertices=None):
+        """Area-averaged surface terms: a dict of 0-d tensors on the
+        device, with ``m_dot_g_surf``, ``area`` and the B'-table clamp
+        counts."""
+        tr = self.trace
+        ff = tr.face_factors(vertices)
+        terms = self._seb_face_qp(tr.values(T), tr.values(p),
+                                  self._wall_grads(p, vertices), Xrep,
+                                  ff.normal, bc, branch, model, bprime)
+        area = torch.sum(ff.wdS)
+        den = torch.clamp(area, min=1e-300)
+        avg = lambda x: torch.sum(x * ff.wdS) / den
+        # each *_surf key averages the term of its stem (q_surf: q_surf)
+        out = {k: avg(terms[k if k == "q_surf" else k[:-len("_surf")]])
+               for k in self._SURF_KEYS}
+        out["m_dot_g_surf"] = avg(terms["m_dot_g_w"])
+        out["area"] = area
+        for k in self._CLAMP_KEYS:
+            out[k] = terms[k]
+        return out
+
+    def top_boundary_values(self, T, p, extent, bc, branch, model, bprime,
+                            vertices=None):
+        """``top_boundary_terms`` stacked into one device vector,
+        [m_dot_g_surf, *_SURF_KEYS, area, *_CLAMP_KEYS] (the scan path
+        keeps a frame of them on the device and reads them back at once)."""
+        vals = self.top_boundary_terms(T, p, extent[self._trace_elem, 0], bc,
+                                       branch, model, bprime,
+                                       vertices=vertices)
+        return torch.stack([vals[k] for k in self.BOUNDARY_VALUE_KEYS])
+
+    def boundary_diagnostics_from_values(self, vals, bprime,
+                                         compute_surface_terms=True,
+                                         count_clamps=True):
+        """The diagnostics dict of one host row of ``top_boundary_values``;
+        adds the clamp counts to ``bprime.clamp_stats``."""
+        v = dict(zip(self.BOUNDARY_VALUE_KEYS, (float(x) for x in vals)))
+        if count_clamps and bprime is not None:
+            bprime.clamp_stats.p += int(v["clamps_p"])
+            bprime.clamp_stats.bg += int(v["clamps_bg"])
+            bprime.clamp_stats.t += int(v["clamps_t"])
+        if v["area"] <= 0:
+            return {k: float("nan") for k in
+                    ("m_dot_g_surf",) + self._SURF_KEYS}
+        out = {"m_dot_g_surf": v["m_dot_g_surf"]}
+        for k in self._SURF_KEYS:
+            out[k] = v[k] if compute_surface_terms else float("nan")
+        return out
+
+    def top_boundary_diagnostics(self, T, p, state: AblationState, bc,
+                                 branch, model, bprime,
+                                 compute_surface_terms=True, vertices=None,
+                                 count_clamps=True):
+        """Area-averaged surface diagnostics (ComputeTopBoundaryDiagnostics):
+        13 quantities + m_dot_g_surf, as host floats; the values and the
+        clamp counts come back in one read-back."""
+        vals = self.top_boundary_values(T, p, state.extent, bc, branch,
+                                        model, bprime, vertices=vertices)
+        return self.boundary_diagnostics_from_values(
+            vals.cpu().numpy(), bprime,
+            compute_surface_terms=compute_surface_terms,
+            count_clamps=count_clamps)
+
+    # -- case 2.2 (not ported yet) -------------------------------------------
 
     def top_boundary_recession_velocity(self, *args, **kwargs):
         raise NotImplementedError(_CASE22)

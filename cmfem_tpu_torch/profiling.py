@@ -1,4 +1,4 @@
-"""Where the time of slices 2, 3, 6, 7 and 8's paths goes, on one GPU.
+"""Where the time of slices 2, 3, 6, 7, 8 and 9's paths goes, on one GPU.
 
     python -m cmfem_tpu_torch.profiling [--n 48] [--out FILE]
                                         [--sections operators,vcycle,...]
@@ -41,7 +41,14 @@ order-2 elements:
   refined twice, float64: the driver run whole for 1 and for 2 steps,
   differenced, and each piece alone at the run's final state — residual,
   ``vmap(jacfwd)`` element Jacobians, block-QR factorization, banded solve
-  with its GMRES, the host ``splu`` path, state advance.
+  with its GMRES, the host ``splu`` path, state advance;
+- one step of the ablation case-2.1 driver (section ``ablation_case21``) on
+  the same strip with the synthetic B' table and the schedule fixture,
+  through the eager host-LU path and ``scan_stepping``, differenced as
+  above, and its pieces alone: the domain residual, the SEB face residual
+  and the B' lookup inside it, the element and face Jacobians, the host
+  ``splu`` with the face blocks, the block-QR factorization, the banded
+  solve and one diagnostics row.
 
 For each it prints the host wall per repetition (profiled, and unprofiled
 where stated), the device busy time (the sum of the device activities'
@@ -416,11 +423,99 @@ def profile_ablation(n, dev, rng, out, nx=11, ny=239, ref_levels=(0, 2)):
             torch.cuda.empty_cache()
 
 
+def profile_ablation_case21(n, dev, rng, out, nx=11, ny=239):
+    """One step of the ablation case-2.1 driver on chip_smoke's phase-12
+    strip (11 x 239 quads, 5,760 DOFs) with the synthetic deck, B' table
+    and schedule, float64, through the eager host-LU path and through
+    ``scan_stepping``: the driver run whole for 1 and for 2 steps under the
+    profiler, differenced (device busy and idle share of step 2); then each
+    piece alone at the scan run's final state (host ms with the device
+    synchronized, and device busy): the domain residual, the SEB face
+    residual and the B' lookup inside it, the element Jacobians, the face
+    Jacobians, the host ``splu`` with the face blocks, the block-QR
+    factorization, the banded solve and one diagnostics row."""
+    from .apps import ablation_case2_1
+    from .core import make_strip_mesh_2d
+    from .solvers.blocksolve import make_scan_block_solver
+
+    sched = os.path.join(os.path.dirname(DECK), "surface_bc_case21.dat")
+
+    def piece(label, fn, reps, top=5):
+        ms = host_ms(fn, reps=reps, warmup=1)
+        profiled(label, fn, reps, out, top=top)
+        out(f"   {label}: unprofiled {ms:.3f} ms per call (host clock, "
+            "device synchronized)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        strip = write_gmsh(make_strip_mesh_2d(nx, ny),
+                           os.path.join(tmp, "strip.msh"))
+        cfg = {"mesh_file": strip, "material_file": DECK,
+               "boundary_conditions_file": sched, "order": 1, "dt": 0.1,
+               "bdr_attr_top": 3, "probe_x": 0.00125,
+               "newton_print_level": 0, "save_paraview": False,
+               "output_path": os.path.join(tmp, "out")}
+        run = lambda steps, scan: ablation_case2_1.run(
+            {**cfg, "t_final": steps * 0.1, "scan_stepping": scan},
+            device=dev)
+        run(1, False)  # warm: the AD transforms' first use, the allocator
+        for scan in (False, True):
+            w1, b1, _ = device_busy(lambda: run(1, scan))
+            w2, b2, r = device_busy(lambda: run(2, scan))
+            wall, busy = w2 - w1, b2 - b1
+            out(f"== ablation_case2_1 "
+                f"{'scan_stepping' if scan else 'eager host LU'}, "
+                f"{2 * r['fes'].nscalar} DOFs, step 2 (chemistry_blowing): "
+                f"wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+                f"{1 - busy / wall:.3f}; {r['newton_iters'][1]} Newton "
+                f"solves; the driver's own clock, ms: "
+                + ", ".join(f"{k} {1e3 * v:.1f}"
+                            for k, v in r["timing"][1].items()))
+        c = ablation_case2_1.Case21({**cfg, "t_final": 0.1}, dev,
+                                    torch.float64)
+        T = torch.as_tensor(r["T"], device=dev)
+        p = torch.as_tensor(r["p"], device=dev)
+        X = r["state"].extent
+        bc, branch = c.boundary(0.3)
+        seb = c.seb(branch)
+        args = (T, p, c.ops.values_at_qp(T - 1.0), c.ops.values_at_qp(p), X,
+                0.1)
+        tr = c.sys.trace
+        Tw = tr.values(T)
+        bg = torch.full_like(Tw, 3e-3)
+        pw = torch.full_like(Tw, bc.p_w)
+        blocks = c.sys.element_jacobians(*args)
+        face = c.face_jacobians(T, p, X, bc, branch)
+        btd = make_scan_block_solver(cfg, c.fes.element_dofs, c.n, c.ess_T,
+                                     c.ess, c.fes.node_positions, device=dev)
+        fac = btd.prepare(blocks, face=face, face_elem=tr.elem)
+        R = c.residual(*args, bc, branch)
+        piece("domain residual", lambda: c.sys.residual(*args), 5)
+        piece("SEB face residual",
+              lambda: c.sys.seb_face_residual(T, p, X, bc, *seb), 5)
+        piece(f"B' lookup at the {tuple(Tw.shape)} face QPs",
+              lambda: c.bprime.lookup(pw, bg, Tw), 5)
+        piece("vmap(jacfwd) element Jacobians",
+              lambda: c.sys.element_jacobians(*args), 2)
+        piece("vmap(jacfwd) SEB face Jacobians",
+              lambda: c.face_jacobians(T, p, X, bc, branch), 3)
+        piece("host splu with the face blocks",
+              lambda: c.host_lu(blocks, face=face), 2)
+        piece(f"{type(btd).__name__} factorization with the face blocks",
+              lambda: btd.prepare(blocks, face=face, face_elem=tr.elem), 2)
+        piece("banded solve with its GMRES",
+              lambda: btd.solve(fac, -R, rtol=1e-10), 2)
+        piece("diagnostics row (read back)",
+              lambda: c.boundary_values(T, p, X, bc, branch).cpu(), 5)
+        c.finish({k: 0.0 for k in ablation_case2_1.TIMING_KEYS
+                  + ("newton", "total")}, 0.0)
+
+
 SECTIONS = {"operators": profile_operators, "vcycle": profile_vcycle,
             "zchain": profile_zchain, "driver": profile_driver,
             "nonlinear": profile_nonlinear,
             "elasticity_cg": profile_elasticity_cg,
-            "ablation": profile_ablation}
+            "ablation": profile_ablation,
+            "ablation_case21": profile_ablation_case21}
 
 
 def main(argv=None):

@@ -6,8 +6,9 @@ mid-heating state carried from the JAX package with
 residual and the Jacobians), float64 on the CPU.  The residual to 1e-12,
 the AD element Jacobians to 1e-10, the state advance and the top-boundary
 mass flux to 1e-12 (relative to the largest entry); the lattice residual
-equals the generic one to 1e-13; ``jacobian_check`` passes; the case-2
-methods raise."""
+equals the generic one to 1e-13; ``jacobian_check`` passes; the case-2.2
+methods raise (the case-2.1 SEB terms are held in
+``test_torch_ablation_seb.py``)."""
 
 import numpy as np
 import pytest
@@ -81,14 +82,10 @@ def test_jacobian_check_passes(pair):
 
 def test_case2_methods_raise(pair):
     psys = pair["psys"]
-    for name in ("seb_face_residual", "seb_face_jacobians",
-                 "top_boundary_terms", "top_boundary_diagnostics",
-                 "top_boundary_recession_velocity", "mass_eq_probe",
+    for name in ("top_boundary_recession_velocity", "mass_eq_probe",
                  "mass_eq_probe_scan"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="case 2.2.*ROADMAP"):
             getattr(psys, name)()
-    with pytest.raises(NotImplementedError, match="case 2.1"):
-        psys.jacobian_check(*pair["pargs"], seb=("flux", None, None))
 
 
 @pytest.mark.gpu

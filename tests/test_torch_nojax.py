@@ -56,7 +56,10 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.physics.tacot", "cmfem_tpu_torch.physics.ablation",
             "cmfem_tpu_torch.ops.lattice2d",
             "cmfem_tpu_torch.solvers.blocksolve",
-            "cmfem_tpu_torch.apps.ablation_case1"} <= set(mods)
+            "cmfem_tpu_torch.apps.ablation_case1",
+            "cmfem_tpu_torch.physics.surface_bc",
+            "cmfem_tpu_torch.physics.bprime", "cmfem_tpu_torch.physics.seb",
+            "cmfem_tpu_torch.apps.ablation_case2_1"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
