@@ -148,6 +148,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      timed alone there; (c) an eager run resumed from (a)'s t = 0.3
      checkpoint ends at (a)'s T (2e-5 K) and p (1e-7 relative); peak device
      memory.  No kernel lies on this path; no launch count moves.
+ 13. slice 10, ablation case 2.2 (surface recession on a moving mesh)
+     through ``run(cfg)``, float64 (``run_ablation_case22``, sizes as
+     arguments), on phase 11's strip split into triangles
+     (``make_strip_mesh_2d(11, 239, geom="triangle")``: 5,258 triangles,
+     5,760 (T, p) DOFs), phase 12's deck, B' table and schedule, dt 0.1, 6
+     steps (1-4 recede on the chemistry-blowing branch, 5-6 cool and stand
+     still): (a) the eager host-LU path (the handler's cold-started
+     smoothing CG on the card, the host remap, ``splu`` over the element
+     and face blocks on the moved mesh) with ``jacobian_check``: the
+     surface recedes from step 1, every step moves or stands still as the
+     schedule says, the rows at t = 0.4 and 0.6 (probes, m_dot_g, m_dot_c,
+     B'g, B'c, q_conv, q_surf, fronts, recession, top height) equal the JAX
+     driver's to 1e-7 relative with equal Newton counts; (b)
+     ``scan_stepping`` (the warm-started smoothing, ``TriStripRemap`` and
+     ``TrackedSampler`` on the card, ``BlockTridiagDirect``): the same rows
+     equal the JAX scan path's to 1e-7 with equal Newton counts; against
+     (a) the same moves and Newton counts, T and p within 1e-5 of their
+     largest values, the recession within 1e-5 relative and the vertices
+     within the recession (at this size the smoothing CG stops on its
+     flat-window exit in both packages, each path at its own iterate, and
+     the scan path samples the fronts on the initial line: ROADMAP, known
+     problem 9); the pieces of a receding step timed alone; (c) an eager run
+     resumed from (a)'s t = 0.3 ALE checkpoint ends at (a)'s T, p and
+     vertices; (d) the study variant (GCL storage, the Amaryllis metrics
+     against ``tests/fixtures/amaryllis_mass_synthetic.dat``), 1 step;
+     peak device memory.  No kernel lies on this path; no launch count
+     moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
@@ -155,8 +182,9 @@ its bound: the larger of the bytes it must move over 3.35 TB/s and its
 FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
 sum-factorization kernel also ``earlier_ms``, the colour design's time in
 the same run), before it the drivers' JSON records (phase 9's, phase 10's,
-phase 11's and phase 12's: DOFs, steps, seconds per step, Newton and Krylov
-iterations, errors; phases 10-12 with the card), then the card's name
+phase 11's, phase 12's and phase 13's: DOFs, steps, seconds per step,
+Newton and Krylov iterations, errors; phases 10-13 with the card), then the
+card's name
 and power limit, and
 {"ok": true,
 "device": {...}}.  Imports no JAX.
@@ -803,10 +831,13 @@ def csv_agree(path_a, path_b, rtol, floors=None):
     """max over the CSV's values of |a - b| / (rtol |b| + 1e-12 max|b| of
     the column): <= 1 when they agree to ``rtol`` (the floor takes the
     roundoff of values that are zero in one run, as the t = 0 mass flux;
-    ``floors`` {column: factor} replaces 1e-12 for some columns)."""
+    ``floors`` {column: factor} replaces 1e-12 for some columns).  NaN
+    must sit in the same places."""
     _, a = read_csv(path_a)
     _, b = read_csv(path_b)
     assert a.shape == b.shape, (path_a, a.shape, b.shape)
+    assert np.array_equal(np.isnan(a), np.isnan(b)), path_a
+    a, b = np.nan_to_num(a), np.nan_to_num(b)
     factor = np.full(b.shape[1], 1e-12)
     for j, f in (floors or {}).items():
         factor[j] = f
@@ -1023,12 +1054,12 @@ def case21_rows(out_dir):
     return rows
 
 
-def rows_rel_diff(got, ref):
-    """max relative difference of two ``case21_rows`` (absolute where the
-    reference value is 0)."""
+def rows_rel_diff(got, ref, keys=C21_ROW_KEYS):
+    """max relative difference of two ``case21_rows`` (or
+    ``case22_rows``) (absolute where the reference value is 0)."""
     d = 0.0
     for t, r in ref.items():
-        for k in C21_ROW_KEYS:
+        for k in keys:
             a, b = np.atleast_1d(got[t][k]), np.atleast_1d(r[k])
             d = max(d, float(np.max(np.where(
                 b != 0, np.abs(a - b) / np.where(b != 0, np.abs(b), 1.0),
@@ -1036,10 +1067,10 @@ def rows_rel_diff(got, ref):
     return d
 
 
-def ms_per_call(device, fn, reps=5):
+def ms_per_call(device, fn, reps=5, warmup=2):
     """Median ms of one call between CUDA events (host clock on a CPU)."""
     if torch.device(device).type == "cuda":
-        return median_ms(fn, reps=reps, warmup=2)
+        return median_ms(fn, reps=reps, warmup=warmup)
     return 1e3 * timed(fn)[1]
 
 
@@ -1205,6 +1236,306 @@ def run_ablation_case21(device, tmp, nx=11, ny=239, steps=6, refs=True):
         "driver": "ablation_case2_1", "variant": "restart from t = 0.3",
         "steps": len(rc["timing"]), "run_s": secs_c,
         "s_per_step": per_step_c, "max_abs_dT": dT, "max_rel_dp": dp})
+    return records
+
+
+# figures of the JAX driver (cmfem_tpu.apps.ablation_case2_2, float64 on a
+# CPU) on phase 13's strip (phase 11's cells split into triangles), deck
+# and schedule after 6 steps of dt 0.1: the rows at t = 0.4 (the last
+# blowing step) and t = 0.6 of out_c22/temperature_probes.csv (wall,
+# TC1..TC8), out_c22/mass_metrics.csv (m_dot_g_surf, m_dot_c,
+# front_98_virgin, front_2_char, recession),
+# out_c22/boundary_diagnostics.csv (BprimeG_surf, BprimeC_surf,
+# q_conv_surf, q_surf) and out_c22/mesh_diagnostics.csv (y_top), and the
+# linear solves per step, from, in a scratch directory with PYTHONPATH at
+# the repo and CMFEM_FORCE_CPU=1:
+#   python -c "from cmfem_tpu_torch.core.mesh import make_strip_mesh_2d,
+#              write_gmsh; write_gmsh(make_strip_mesh_2d(11, 239,
+#              geom='triangle'), 'strip_tri.msh')"
+#   python -m cmfem_tpu.apps.ablation_case2_2 -i case22.yaml
+# case22.yaml: case21.yaml's keys with mesh_file: strip_tri.msh,
+# bdr_attr_bottom: 1 and output_path: out_c22 (about 4 minutes).
+JAX_13A = {
+    0.4: {"probes": [797.6700704823648, 439.6243874019435, 327.6873485444437,
+                     300.622342715303, 300.0000894900056, 300.0000093015908,
+                     300.0000092790766, 300.0000092551921,
+                     300.0000092215779],
+          "m_dot_g_surf": 0.001696193974321287,
+          "m_dot_c": 0.0003286232352275877,
+          "BprimeG_surf": 0.005673103993045983,
+          "BprimeC_surf": 0.001099115825858991,
+          "q_conv_surf": 275862.5646173463, "q_surf": 255760.7633846378,
+          "fronts": [6.901081976630474e-06, 0.0],
+          "recession": 1.087536967826666e-07,
+          "y_top": 0.04999989218834883},
+    0.6: {"probes": [580.3020241224309, 468.7746443801251, 353.1308431758689,
+                     302.3347811873091, 300.0009300297292, 300.0000044548511,
+                     300.0000043080682, 300.0000043252476,
+                     300.0000043496241],
+          "m_dot_g_surf": 0.0003358296480927275, "m_dot_c": 0.0,
+          "BprimeG_surf": 0.0, "BprimeC_surf": 0.0,
+          "q_conv_surf": -2803.017881092468, "q_surf": -7878.321096137867,
+          "fronts": [1.921057952163768e-05, 0.0],
+          "recession": 1.087536967826666e-07,
+          "y_top": 0.04999989218834883}}
+JAX_13A_NEWTON = [3, 3, 3, 3, 3, 3]
+# the same rows of the JAX driver's scan path (warm-started smoothing CG,
+# TriStripRemap, TrackedSampler), from case22.yaml's keys with
+# scan_stepping: true, output_every: 3 and output_path: out_c22_scan
+# (about 4 minutes); 3 linear solves in every step.  They differ from
+# JAX_13A: at this size the smoothing CG of both paths stops on its
+# flat-window exit, each at its own iterate, and the scan path samples the
+# fronts on the initial line (ROADMAP, known problem 9).
+JAX_13B = {
+    0.4: {"probes": [797.6714142242758, 439.625282071731, 327.6876861958291,
+                     300.6223488964589, 299.9994294238952, 299.9997098002101,
+                     299.9999673840368, 300.0000058226994,
+                     300.0000092194496],
+          "m_dot_g_surf": 0.001696188408627389,
+          "m_dot_c": 0.0003286287262176732,
+          "BprimeG_surf": 0.005673085377301933,
+          "BprimeC_surf": 0.001099134190930544,
+          "q_conv_surf": 275862.0723415339, "q_surf": 255760.1400474708,
+          "fronts": [0.0, 0.0], "recession": 1.08753804210757e-07,
+          "y_top": 0.0499998921283346},
+    0.6: {"probes": [580.303185972103, 468.7755450939093, 353.1312614036366,
+                     302.3349567769159, 300.000352731395, 299.9997049091631,
+                     299.9999599605044, 300.0000006636623,
+                     300.0000043496459],
+          "m_dot_g_surf": 0.0003358320744167893, "m_dot_c": 0.0,
+          "BprimeG_surf": 0.0, "BprimeC_surf": 0.0,
+          "q_conv_surf": -2803.029499589637, "q_surf": -7878.376487397373,
+          "fronts": [0.0, 0.0], "recession": 1.08753804210757e-07,
+          "y_top": 0.0499998921283346}}
+C22_ROW_KEYS = ("probes", "m_dot_g_surf", "m_dot_c", "BprimeG_surf",
+                "BprimeC_surf", "q_conv_surf", "q_surf", "fronts",
+                "recession", "y_top")
+AMARYLLIS = os.path.join(ROOT, "tests", "fixtures",
+                         "amaryllis_mass_synthetic.dat")
+
+
+def case22_rows(out_dir):
+    """{t: {C22_ROW_KEYS}} of a case-2.2 run's output rows at t = 0.4 and
+    the last t."""
+    _, probes = read_csv(os.path.join(out_dir, "temperature_probes.csv"))
+    _, mass = read_csv(os.path.join(out_dir, "mass_metrics.csv"))
+    hdr, bdr = read_csv(os.path.join(out_dir, "boundary_diagnostics.csv"))
+    _, mesh = read_csv(os.path.join(out_dir, "mesh_diagnostics.csv"))
+    col = {k: hdr.index(k) for k in ("BprimeG_surf", "BprimeC_surf",
+                                     "q_conv_surf", "q_surf")}
+    rows = {}
+    for i in sorted({int(np.argmin(np.abs(probes[:, 0] - 0.4))),
+                     len(probes) - 1}):
+        rows[round(float(probes[i, 0]), 6)] = {
+            "probes": [float(v) for v in probes[i, 1:]],
+            "m_dot_g_surf": float(mass[i, 1]), "m_dot_c": float(mass[i, 2]),
+            **{k: float(bdr[i, j]) for k, j in col.items()},
+            "fronts": [float(mass[i, 3]), float(mass[i, 4])],
+            "recession": float(mass[i, 5]), "y_top": float(mesh[i, 1])}
+    return rows
+
+
+def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
+    """Phase 13: the case-2.2 ablation driver through ``run(cfg)`` on phase
+    11's strip split into triangles, with the synthetic deck and B' table
+    and the schedule fixture (steps 1-4 recede on the chemistry-blowing
+    branch, 5-6 cool and stand still), float64; returns the
+    ``ablation_case2_2`` records.  The sizes are arguments so that the
+    control flow can be rehearsed small on a CPU; ``refs`` holds (a) to the
+    JAX driver's figures above, which belong to the default sizes only."""
+    from cmfem_tpu_torch.apps import ablation_case2_2, ablation_case2_2_test
+    from cmfem_tpu_torch.core import make_strip_mesh_2d
+    from cmfem_tpu_torch.profiling import case22_pieces
+
+    strip = write_gmsh(make_strip_mesh_2d(nx, ny, geom="triangle"),
+                       os.path.join(tmp, "strip_tri.msh"))
+    out = lambda name: os.path.join(tmp, name)
+    base = {"mesh_file": strip, "material_file": TACOT_DECK,
+            "boundary_conditions_file": SCHEDULE_C21, "order": 1, "dt": 0.1,
+            "t_final": steps * 0.1, "bdr_attr_top": 3, "bdr_attr_bottom": 1,
+            "probe_x": 0.00125, "newton_print_level": 0,
+            "save_paraview": False, "output_every": 3}
+    # the schedule's chemistry is on through the 0.4 s node: those steps
+    # recede, the cooling ones stand still (the JAX path's _move/_still)
+    moves = [0.1 * k <= 0.4 + 1e-9 for k in range(1, steps + 1)]
+    records = []
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def drive(label, cfg, run=ablation_case2_2.run):
+        reset_counts()
+        r, secs = timed(lambda: run(cfg, device=device))
+        assert not any(counts().values()), counts()
+        assert r["converged"] and np.isfinite(r["T"]).all()
+        per_step = statistics.median(t["total"] for t in r["timing"])
+        split = split_median(r["timing"], keys=(
+            "recession", "residual", "jacobian", "factorization", "linear",
+            "update", "state", "output"))
+        log(f"phase 13{label}: {2 * r['fes'].nscalar} DOFs, "
+            f"{len(r['timing'])} steps, run {secs:.2f} s, median "
+            f"{per_step:.4f} s/step; split (median s/step): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; linear solves per step {r['newton_iters']}; moved "
+            f"{r['moved']}; recession {r['recession_total']:.6e} m")
+        return r, secs, per_step, split
+
+    # -- 13a. the eager path: host splu over the element and face blocks on
+    # the moved mesh, jacobian_check (the domain blocks with the mesh
+    # velocity, once per flux branch with the face blocks), a checkpoint
+    # at t = 0.3
+    ra, secs, per_step, split = drive("a host LU", {
+        **base, "jacobian_check": True, "output_path": out("c22_lu"),
+        "restart_write_file": out("c22.chk"), "restart_write_at_time": 0.3,
+        "restart_write_at_end": False})
+    jc = ra["jacobian_check"]
+    log(f"phase 13a: jacobian_check: {jc}")
+    assert jc["chemistry_blowing"] is None            # B'g = 0 clamps
+    assert 0.0 <= jc["domain"] < 1e-4 and 0.0 <= jc["cooling_standard"] < 1e-4
+    hist = np.asarray(ra["recession_history"])
+    assert ra["moved"] == moves and hist[1, 1] > 0, (ra["moved"], hist)
+    rows = case22_rows(out("c22_lu"))
+    log(f"phase 13a: rows {json.dumps(rows)}")
+    d_jax = None
+    if refs:
+        d_jax = rows_rel_diff(rows, JAX_13A, keys=C22_ROW_KEYS)
+        log(f"phase 13a: vs the JAX driver's figures: max relative "
+            f"difference {d_jax:.3e} (tol 1e-7); linear solves per step "
+            f"{ra['newton_iters']} vs {JAX_13A_NEWTON}")
+        assert d_jax <= 1e-7 and ra["newton_iters"] == JAX_13A_NEWTON, d_jax
+
+    # -- 13b. scan_stepping: the state, the vertices and the warm-started
+    # smoothing velocity on the card, TriStripRemap, TrackedSampler
+    rb, secs_b, per_step_b, split_b = drive("b scan_stepping", {
+        **base, "scan_stepping": True, "output_path": out("c22_scan")})
+    assert rb["linear_solver"] == "BlockTridiagDirect"
+    rows_b = case22_rows(out("c22_scan"))
+    log(f"phase 13b: rows {json.dumps(rows_b)}")
+    d_jax_b = None
+    if refs:
+        d_jax_b = rows_rel_diff(rows_b, JAX_13B, keys=C22_ROW_KEYS)
+        log(f"phase 13b: vs the JAX scan path's figures: max relative "
+            f"difference {d_jax_b:.3e} (tol 1e-7)")
+        assert d_jax_b <= 1e-7 and rb["newton_iters"] == JAX_13A_NEWTON, \
+            d_jax_b
+    # against 13a: the same moves and Newton counts; the two paths keep
+    # different smoothing-CG iterates where the CG stops on its
+    # flat-window exit, so the vertices agree within the recession and the
+    # fields to what that moves
+    d_csv = max(csv_agree(os.path.join(out("c22_scan"), name),
+                          os.path.join(out("c22_lu"), name), 1e-8)
+                for name in ("temperature_probes.csv", "mass_metrics.csv",
+                             "boundary_diagnostics.csv",
+                             "pressure_probes.csv", "mesh_diagnostics.csv",
+                             "mass_eq_probe_diagnostics.csv"))
+    vmax = float(np.abs(ra["vertices"]).max())
+    d_verts = float(np.abs(rb["vertices"] - ra["vertices"]).max())
+    d_rec = abs(rb["recession_total"] - ra["recession_total"]) \
+        / ra["recession_total"]
+    d_T = float(np.abs(rb["T"] - ra["T"]).max() / np.abs(ra["T"]).max())
+    d_p = float(np.abs(rb["p"] - ra["p"]).max() / np.abs(ra["p"]).max())
+    log(f"phase 13b: vs 13a: CSVs max |d| / (1e-8 |a| + floor) = "
+        f"{d_csv:.3e}; vertices max|d| {d_verts:.3e} m = "
+        f"{d_verts / vmax:.3e} of max|v| (the recession "
+        f"{ra['recession_total']:.3e} m); recession rel {d_rec:.3e}; T "
+        f"{d_T:.3e}, p {d_p:.3e} of max; moved {rb['moved']}")
+    assert rb["newton_iters"] == ra["newton_iters"]
+    assert rb["moved"] == ra["moved"]
+    assert d_verts <= ra["recession_total"] and d_rec <= 1e-5, \
+        (d_verts, d_rec)
+    assert d_T <= 1e-5 and d_p <= 1e-5, (d_T, d_p)
+
+    # the front line's first crossing on the card: torch.argmax of the
+    # crossing mask (an integer cast) must return the FIRST True, as the
+    # host front_depth_from_line's scan does, with crossings far apart
+    from cmfem_tpu_torch.core.pointlocate import front_depth_from_line
+    from cmfem_tpu_torch.core.tracksample import (front_depth_from_samples,
+                                                  line_points)
+
+    ys = line_points(0.00125, 0.05, 0.0)[:, 1]
+    vals = np.zeros(len(ys))
+    vals[97:150] = 1.0
+    vals[200:] = 1.0
+    first = [float(front_depth_from_samples(
+        torch.as_tensor(vals, device=device),
+        torch.as_tensor(ys, device=device), 0.05, thr)) for thr in (0.5, 1.0)]
+    host = [front_depth_from_line(vals, ys, 0.05, thr) for thr in (0.5, 1.0)]
+    log(f"phase 13b: first crossing on the {torch.device(device).type}: "
+        f"{first} (host {host})")
+    assert np.allclose(first, host, rtol=1e-12, atol=0) and first[0] > 0
+
+    # the pieces of a receding step alone, at 13b's final state with the
+    # blowing boundary of t = 0.3
+    pieces, c = case22_pieces({**base, "output_path": out("c22_pc")}, rb,
+                              device)
+    reset_counts()
+    piece_ms = {label: ms_per_call(device, fn, reps=3, warmup=1)
+                for label, fn in pieces.items()}
+    assert not any(counts().values()), counts()
+    c.finish({k: 0.0 for k in ablation_case2_2.TIMING_KEYS
+              + ("newton", "total")}, 0.0)
+    log("phase 13b: ms per call (CUDA events): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in piece_ms.items()))
+    del pieces, c
+
+    # -- 13c. the restart: an eager run from 13a's t = 0.3 checkpoint, on
+    # the receded mesh it carries
+    rc, secs_c, per_step_c, split_c = drive("c restart", {
+        **base, "output_path": out("c22_rs"),
+        "restart_read_file": out("c22.chk")})
+    dT = float(np.abs(rc["T"] - ra["T"]).max())
+    dp = float(np.max(np.abs(rc["p"] - ra["p"]) / np.abs(ra["p"])))
+    dv = float(np.abs(rc["vertices"] - ra["vertices"]).max()) / vmax
+    log(f"phase 13c: resumed at t = 0.3 to t = {rc['time']:.3f}: final "
+        f"max|dT| {dT:.3e} K (tol 2e-5), max |dp|/|p| {dp:.3e} (tol 1e-7), "
+        f"vertices max|d| / max|v| {dv:.3e} (tol 1e-12), recession "
+        f"{rc['recession_total']:.6e} m")
+    assert rc["step"] == steps and dT <= 2e-5 and dp <= 1e-7, (dT, dp)
+    assert dv <= 1e-12 and rc["moved"] == moves[3:], (dv, rc["moved"])
+    assert abs(rc["recession_total"] - ra["recession_total"]) <= \
+        1e-8 * ra["recession_total"]
+
+    # -- 13d. the study variant: GCL storage, the Amaryllis metrics
+    rd, secs_d, per_step_d, split_d = drive("d study variant", {
+        **base, "t_final": 0.1, "output_path": out("c22_study"),
+        "amaryllis_mass_file": AMARYLLIS}, run=ablation_case2_2_test.run)
+    metrics = rd["recession_metrics"]
+    log(f"phase 13d: recession vs the synthetic Amaryllis history: "
+        f"{metrics}")
+    assert metrics and all(np.isfinite(v) for v in metrics.values())
+    assert os.path.exists(os.path.join(out("c22_study"),
+                                       "recession_error_metrics.csv"))
+    assert rd["moved"] == moves[:1]
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+            else float("nan"))
+    log(f"phase 13: peak device memory {peak:.3f} GiB")
+
+    records.append({
+        "driver": "ablation_case2_2", "variant": "host LU (splu)",
+        "dofs": 2 * ra["fes"].nscalar, "elements": ra["mesh"].num_elements,
+        "steps": len(ra["timing"]), "run_s": secs, "s_per_step": per_step,
+        "split_s": split, "newton_iters_per_step": ra["newton_iters"],
+        "moved": ra["moved"], "recession_m": ra["recession_total"],
+        "jacobian_check": jc, "rows": rows, "vs_jax": d_jax,
+        "peak_mem_gib": peak})
+    records.append({
+        "driver": "ablation_case2_2", "variant": "scan_stepping (block QR)",
+        "dofs": 2 * rb["fes"].nscalar, "steps": len(rb["timing"]),
+        "run_s": secs_b, "s_per_step": per_step_b, "split_s": split_b,
+        "newton_iters_per_step": rb["newton_iters"], "moved": rb["moved"],
+        "krylov_iters_per_solve": rb["krylov_iters"],
+        "rows": rows_b, "vs_jax_scan": d_jax_b, "csv_vs_host_lu": d_csv,
+        "vertices_vs_host_lu_m": d_verts, "T_vs_host_lu": d_T,
+        "recession_vs_host_lu": d_rec, "ms_per_call": piece_ms})
+    records.append({
+        "driver": "ablation_case2_2", "variant": "restart from t = 0.3",
+        "steps": len(rc["timing"]), "run_s": secs_c,
+        "s_per_step": per_step_c, "max_abs_dT": dT, "max_rel_dp": dp,
+        "vertices_vs_straight": dv})
+    records.append({
+        "driver": "ablation_case2_2_test", "variant": "study (GCL storage)",
+        "steps": len(rd["timing"]), "run_s": secs_d,
+        "s_per_step": per_step_d, "recession_metrics": metrics})
     return records
 
 
@@ -1855,6 +2186,14 @@ def main():
                       for rec in run_ablation_case21(dev, tmp)]
     log(f"phase 12: {time.perf_counter() - t12:.1f} s (budget 30 s)")
 
+    # -- 13. slice 10: the charring-ablator case 2.2 -------------------------
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ablation22 = [{**rec, "card": smi}
+                      for rec in run_ablation_case22(dev, tmp)]
+    t13 = time.perf_counter() - t13
+    log(f"phase 13: {t13:.1f} s (budget 40 s)")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
@@ -1872,6 +2211,7 @@ def main():
     log(json.dumps({"nonlinear_drivers": nonlinear}))
     log(json.dumps({"ablation_case1": ablation}))
     log(json.dumps({"ablation_case2_1": ablation21}))
+    log(json.dumps({"ablation_case2_2": ablation22}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,

@@ -179,6 +179,20 @@ def _write_case21_final_csvs(cfg, output_path, bprime):
         w.writerow(["temperature", bprime.clamp_stats.t])
 
 
+def load_bprime_table(cfg):
+    """The configured B' table, or a clearly-labelled synthetic one with
+    the right shape when the file is missing (as the JAX drivers do)."""
+    from ..physics.bprime import BPrimeTable
+
+    bprime_cfg = cfg.get("bprime_table_file", "")
+    bprime_path = resolve_path(cfg, bprime_cfg) if bprime_cfg else ""
+    if bprime_path and os.path.isfile(bprime_path):
+        return BPrimeTable.load_file(bprime_path)
+    print(f"B' table not found ({bprime_path!r}); using synthetic "
+          f"TACOT-shaped table (NOT validation data).")
+    return BPrimeTable.synthetic_tacot()
+
+
 class Case21(Case1):
     """The set-up of a case-2.1 run: case 1's (mesh, deck, space, system,
     stencils, host LU) with the SEB model, the B' table, the surface
@@ -192,7 +206,6 @@ class Case21(Case1):
                             0.026, 0.01]}
 
     def _init_boundary(self, cfg):
-        from ..physics.bprime import BPrimeTable
         from ..physics.seb import SurfaceFluxModel
         from ..physics.surface_bc import (SurfaceBCSchedule,
                                           TopTemperatureSchedule)
@@ -220,14 +233,7 @@ class Case21(Case1):
         if self.model.pato_compat_mode not in ("off", "cooling_exact"):
             raise ValueError(
                 'pato_compat_mode must be either "off" or "cooling_exact".')
-        bprime_cfg = cfg.get("bprime_table_file", "")
-        bprime_path = resolve_path(cfg, bprime_cfg) if bprime_cfg else ""
-        if bprime_path and os.path.isfile(bprime_path):
-            self.bprime = BPrimeTable.load_file(bprime_path)
-        else:
-            print(f"B' table not found ({bprime_path!r}); using synthetic "
-                  f"TACOT-shaped table (NOT validation data).")
-            self.bprime = BPrimeTable.synthetic_tacot()
+        self.bprime = load_bprime_table(cfg)
         self.schedule = SurfaceBCSchedule.load_file(resolve_path(
             cfg, cfg.get("boundary_conditions_file",
                          "Input/boundary_conditions_ablation_case2_1.dat")))
@@ -350,6 +356,9 @@ class Case21(Case1):
         print(f"Loaded restart from {path} at step {step}, time {t} s.")
         return step, t, T, p, state
 
+    def save_checkpoint(self, path, step, t, T, p, X):
+        save_restart(path, step, t, T, p, X, elem_order=self.elem_order)
+
     def restart_writer(self, t0):
         """``write(step, t_prev, t, T, p, extent)`` after each step (every
         ``restart_write_every`` steps, and the step that crosses
@@ -364,8 +373,7 @@ class Case21(Case1):
         at = float(at) if at is not None else float("nan")
         at_end = bool(cfg.get("restart_write_at_end", True))
         pending = [np.isfinite(at) and t0 < at - RESTART_TIME_TOL]
-        save = lambda step, t, T, p, X: save_restart(
-            path, step, t, T, p, X, elem_order=self.elem_order)
+        save = lambda *args: self.save_checkpoint(path, *args)
 
         def write(step, t_prev, t, T, p, X):
             if not path:

@@ -1,7 +1,6 @@
 """Shared app-driver scaffolding: CLI, device choice, mesh setup, config echo.
 
-Port of ``cmfem_tpu/apps/common.py`` but ``moving_mesh_and_ale_toggles``
-(ablation case 2.2).  Each app mirrors one reference driver: parse
+Port of ``cmfem_tpu/apps/common.py``.  Each app mirrors one reference driver: parse
 `-i input.yaml`, echo config, build mesh/space, run, write CSV + ParaView.
 A driver's ``run(cfg, device=None)`` runs on the CUDA device and raises
 without one; ``device="cpu"``, or ``CMFEM_FORCE_CPU=1`` for ``main()``,
@@ -568,6 +567,38 @@ def maybe_enable_lattice_residual(cfg: dict, sys_, fes):
     print("lattice_residual: window-slicing residual path enabled "
           f"({sys_.lat.NY}x{sys_.lat.NX} dof lattice)")
     return True
+
+
+def moving_mesh_and_ale_toggles(cfg: dict):
+    """Resolve the case-2.2 mesh-motion/ALE switch set with the
+    reference's composition (ablation_test_case2_2_2D.cpp:357-361, :3712;
+    _test.cpp:4409-4416):
+
+      moving_mesh (master)                -> recession machinery at all
+      ale_mass_active   = moving_mesh && ale_enabled && ale_mass_enabled
+      ale_energy_solid  = moving_mesh && ale_enabled && ale_energy_enabled
+                          && ale_energy_solid_enabled
+      ale_energy_gas    = moving_mesh && ale_enabled && ale_energy_enabled
+                          && ale_energy_gas_enabled
+
+    The production driver honours the per-term keys of the study variant
+    too (the reference's production driver ignores them; every reference
+    production config leaves them at their defaults, all true).
+    ``recession_enabled`` (default true) AND-composes with
+    ``moving_mesh``: setting either to false disables mesh motion.
+    Validates ``mesh_smoothing_model`` like the reference (:483-491).
+    Returns (moving, (ale_mass, ale_energy_solid, ale_energy_gas))."""
+    smoothing = str(cfg.get("mesh_smoothing_model", "laplacian")).lower()
+    if smoothing != "laplacian":
+        raise ValueError('mesh_smoothing_model must be "laplacian".')
+    moving = bool(cfg.get("moving_mesh", True)) \
+        and bool(cfg.get("recession_enabled", True))
+    ale = moving and bool(cfg.get("ale_enabled", True))
+    ale_energy = ale and bool(cfg.get("ale_energy_enabled", True))
+    toggles = (ale and bool(cfg.get("ale_mass_enabled", True)),
+               ale_energy and bool(cfg.get("ale_energy_solid_enabled", True)),
+               ale_energy and bool(cfg.get("ale_energy_gas_enabled", True)))
+    return moving, toggles
 
 
 def maybe_reorder_strip_mesh(cfg: dict, mesh):

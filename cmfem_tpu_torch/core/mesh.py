@@ -299,13 +299,15 @@ def make_cartesian_mesh_2d(nx: int, ny: int, sx=1.0, sy=1.0, x0=0.0, y0=0.0,
 
 
 def make_strip_mesh_2d(nx: int, ny: int, sx=0.0025, sy=0.05,
-                       grading=10.0) -> Mesh:
-    """The ablation strip: nx x ny quads on [0, sx] x [0, sy], the cell
+                       grading=10.0, geom: str = QUAD) -> Mesh:
+    """The ablation strip: nx x ny cells on [0, sx] x [0, sy], the cell
     heights a geometric progression that shrinks toward the heated top
     (bottom cell ``grading`` times the top one).  Boundary attributes as
-    ``make_cartesian_mesh_2d`` (3 = top).  Elements are row-major over the
-    cell lattice, so the strip qualifies for ``ops.lattice2d``."""
-    mesh = make_cartesian_mesh_2d(nx, ny, sx=sx, sy=sy)
+    ``make_cartesian_mesh_2d`` (3 = top).  ``geom=QUAD``: one quad per
+    cell, row-major over the cell lattice, so the strip qualifies for
+    ``ops.lattice2d``; ``geom=TRIANGLE``: each cell split in two as
+    ``make_cartesian_mesh_2d(geom=TRIANGLE)`` splits it."""
+    mesh = make_cartesian_mesh_2d(nx, ny, sx=sx, sy=sy, geom=geom)
     q = (1.0 / grading) ** (1.0 / max(ny - 1, 1))
     h = q ** np.arange(ny)
     ys = np.concatenate([[0.0], np.cumsum(h)]) * (sy / h.sum())

@@ -14,13 +14,15 @@ reference's ``AblationTPIntegrator`` + ``ReactionStateManager``):
   diagnostic;
 - the surface-energy-balance (SEB) face residual of case 2.1, its face
   Jacobian blocks by ``vmap(jacfwd)`` over the boundary faces, and the
-  area-averaged boundary terms.
+  area-averaged boundary terms;
+- case 2.2's lumped top-boundary recession velocity and the per-point
+  mass-equation probes (host-located, and fed by a ``TrackedSampler`` on
+  the device for the scan path).
 
 Everything is batched over (ne, nq) on the device of the ``SpaceOps``.  The
-case-2.2 parts of the JAX module (the recession velocity, the
-mass-equation probes) raise ``NotImplementedError`` here until their slice
-ports them.  The boundary diagnostics run eagerly: the JAX package caches
-one jitted program per flux branch, which has no counterpart here.
+boundary diagnostics and the recession velocity run eagerly: the JAX
+package caches one jitted program per flux branch (and density mode),
+which has no counterpart here.
 """
 
 from __future__ import annotations
@@ -35,11 +37,6 @@ from ..ops.faces import BoundaryTrace
 from .tacot import TacotMaterial
 
 MU_FLOOR = 1.0e-12
-
-_CASE22 = ("the recession and mass-probe diagnostics belong to ablation case "
-           "2.2, which is not ported yet (ROADMAP queue A item 16, the "
-           "case-2.2 slice)")
-
 
 @dataclass
 class AblationState:
@@ -637,13 +634,124 @@ class AblationSystem:
             compute_surface_terms=compute_surface_terms,
             count_clamps=count_clamps)
 
-    # -- case 2.2 (not ported yet) -------------------------------------------
+    # -- case 2.2 ------------------------------------------------------------
 
-    def top_boundary_recession_velocity(self, *args, **kwargs):
-        raise NotImplementedError(_CASE22)
+    def _recession_velocity_terms(self, T, p, Xrep, bc, branch, model,
+                                  bprime, recession_density_mode,
+                                  recession_density_constant, vertices):
+        """The body of ``top_boundary_recession_velocity`` on the
+        representative extents ``Xrep`` (nbf, nr): a tensor (n,)."""
+        tr = self.trace
+        Tw = tr.values(T)
+        ff = tr.face_factors(vertices)
+        terms = self._seb_face_qp(Tw, tr.values(p),
+                                  self._wall_grads(p, vertices), Xrep,
+                                  ff.normal, bc, branch, model, bprime)
+        rho_rec = terms["rho_s"] if recession_density_mode == "char_surface" \
+            else torch.full_like(Tw, recession_density_constant)
+        zero = torch.zeros_like(Tw)
+        rho_rec = torch.maximum(rho_rec, zero + 1e-8)
+        v_rec = torch.maximum(zero, terms["m_dot_c"]) / rho_rec
+        num = tr.scatter(v_rec * ff.wdS)
+        den = tr.scatter(ff.wdS)
+        tiny = torch.finfo(den.dtype).tiny
+        v = torch.where(den > 1e-16,
+                        num / torch.maximum(den, torch.full_like(den, tiny)),
+                        0.0)
+        v = torch.where(torch.isfinite(v) & (v > 0), v, 0.0)
+        # restricted to the top-boundary dofs
+        if not hasattr(self, "_top_mask"):
+            top = np.zeros(self.n, dtype=bool)
+            top[np.unique(np.asarray(tr.fes.bdr.dofs)[tr.face_ids])] = True
+            self._top_mask = torch.as_tensor(top, device=v.device)
+        return torch.where(self._top_mask, v, 0.0)
 
-    def mass_eq_probe(self, *args, **kwargs):
-        raise NotImplementedError(_CASE22)
+    def top_boundary_recession_velocity(self, T, p, state: AblationState,
+                                        bc, branch, model, bprime,
+                                        recession_density_mode="char_surface",
+                                        recession_density_constant=1200.0,
+                                        vertices=None):
+        """Lumped top-boundary recession velocity (n,) at scalar DOFs, a
+        tensor: v_rec = max(0, m_dot_c)/rho_rec averaged with ds psi
+        weights (AssembleTopBoundaryRecessionVelocity,
+        ablation_test_case2_2_2D.cpp:2740-2953), on the element QP-average
+        extents as the representative state (:2454-2500)."""
+        Xrep = torch.mean(state.extent, dim=1)[self._trace_elem]
+        return self._recession_velocity_terms(
+            T, p, Xrep, bc, branch, model, bprime, recession_density_mode,
+            float(recession_density_constant), vertices)
 
-    def mass_eq_probe_scan(self, *args, **kwargs):
-        raise NotImplementedError(_CASE22)
+    def _probe_columns(self, Tpt, ppt, gradp_y, Xn, pi):
+        """The 9 mass-equation probe columns of points with values Tpt,
+        ppt, dp/dy, extents Xn (npts, nr) and pyrolysis rate pi."""
+        solid = self.mat.solid_props(Tpt, ppt, Xn)
+        gas = self.mat.gas_props(Tpt, ppt)
+        mu = torch.maximum(gas["mu"], torch.full_like(gas["mu"], MU_FLOOR))
+        rho = gas["rho"]
+        K = solid["K"]
+        rho_darcy = rho * K / mu
+        gy = self.gravity[1] if self.gravity.shape[0] > 1 else 0.0
+        return torch.stack([
+            pi, solid["tau"], solid["eps_g"] * rho, gradp_y, rho,
+            gas["mu"], K, rho_darcy,
+            -rho_darcy * gradp_y + rho * rho_darcy * gy], dim=1)
+
+    def mass_eq_probe(self, T, p, state: AblationState, points,
+                      vertices=None):
+        """Per-point mass-equation diagnostics (SampleMassEqProbeAtPoint,
+        ablation_test_case2_2_2D_test.cpp:3483-3560): for each probe point,
+        [pi_total, tau, eps_g*rho_g, dp/dy, rho_g, mu_g, K,
+        mobility(=rho K/mu), mflux_y] using the nearest tabulated QP's
+        reaction state; NaN rows where the point is not found.  The points
+        are located on the host (``core.pointlocate``); returns numpy."""
+        from ..core.pointlocate import locate_points, sample_h1, \
+            sample_h1_grad
+
+        host = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) \
+            else np.asarray(a)
+        fes = self.ops.fes
+        T, p = host(T), host(p)
+        vertices = None if vertices is None else host(vertices)
+        points = np.atleast_2d(np.asarray(points, dtype=np.float64))
+        Tpt = sample_h1(fes, T, points, vertices)
+        ppt = sample_h1(fes, p, points, vertices)
+        gp = sample_h1_grad(fes, p, points, vertices)
+        e_ids, refs = locate_points(fes.mesh, points, vertices)
+        out = np.full((len(points), 9), np.nan)
+        found = np.nonzero(e_ids >= 0)[0]
+        if len(found) == 0:
+            return out
+        qp_ref = np.asarray(self.ops.quad.points)
+        d2 = ((refs[found][:, None, :] - qp_ref[None]) ** 2).sum(axis=2)
+        nearest_q = np.argmin(d2, axis=1)
+        Xn = host(state.extent)[e_ids[found], nearest_q]  # (nf, nr)
+        if state.pi_qp is not None:
+            pi = np.asarray(state.pi_qp)[e_ids[found], nearest_q]
+        else:
+            pi = np.asarray(state.pi_elem)[e_ids[found]]
+        gradp_y = gp[found][:, 1] if gp.shape[1] > 1 \
+            else np.zeros(len(found))
+        tens = lambda a: torch.as_tensor(np.asarray(a), dtype=self.ops.dtype,
+                                         device=self.ops.device)
+        out[found] = host(self._probe_columns(
+            tens(Tpt[found]), tens(ppt[found]), tens(gradp_y), tens(Xn),
+            tens(pi)))
+        return out
+
+    def mass_eq_probe_scan(self, T, p, X, pi_qp, sampler, loc, verts):
+        """``mass_eq_probe`` on the device: the same 9 columns per point,
+        fed by a ``TrackedSampler`` location ``loc = sampler.locate(verts)``
+        (no read-back); NaN rows where not found."""
+        eid, ref, found = loc
+        Tpt = sampler.sample_h1(loc, T)
+        ppt = sampler.sample_h1(loc, p)
+        gp = sampler.sample_grad(loc, p, verts)
+        qp_ref = torch.as_tensor(np.asarray(self.ops.quad.points),
+                                 dtype=ref.dtype, device=ref.device)
+        d2 = ((ref[:, None, :] - qp_ref[None]) ** 2).sum(dim=2)
+        nearest_q = torch.argmin(d2, dim=1)
+        e_safe = torch.clamp(eid, min=0).long()
+        out = self._probe_columns(Tpt, ppt, gp[:, 1],
+                                  X[e_safe, nearest_q],
+                                  pi_qp[e_safe, nearest_q])
+        return torch.where(found[:, None], out, float("nan"))

@@ -1,4 +1,4 @@
-"""Where the time of slices 2, 3, 6, 7, 8 and 9's paths goes, on one GPU.
+"""Where the time of slices 2, 3, 6, 7, 8, 9 and 10's paths goes, on one GPU.
 
     python -m cmfem_tpu_torch.profiling [--n 48] [--out FILE]
                                         [--sections operators,vcycle,...]
@@ -48,7 +48,13 @@ order-2 elements:
   above, and its pieces alone: the domain residual, the SEB face residual
   and the B' lookup inside it, the element and face Jacobians, the host
   ``splu`` with the face blocks, the block-QR factorization, the banded
-  solve and one diagnostics row.
+  solve and one diagnostics row;
+- one step of the ablation case-2.2 driver (section ``ablation_case22``)
+  on the same strip split into triangles, through both paths, differenced
+  as above, and its pieces alone (``case22_pieces``): the recession
+  velocity, the smoothing CG started cold and warm, the device remap, the
+  quality metric, the residual, the element and face Jacobians, the
+  block-QR factorization, the banded solve and one step's diagnostics.
 
 For each it prints the host wall per repetition (profiled, and unprofiled
 where stated), the device busy time (the sum of the device activities'
@@ -510,12 +516,124 @@ def profile_ablation_case21(n, dev, rng, out, nx=11, ny=239):
                   + ("newton", "total")}, 0.0)
 
 
+def case22_pieces(cfg, r, dev):
+    """The pieces of a case-2.2 step at a run's final state (``r``: a
+    ``run`` result on ``cfg``'s strip), with the chemistry-blowing boundary
+    of t = 0.3 so that the surface recedes: {label: fn} for the recession
+    velocity, the smoothing CG started cold and warm (from the smoothed
+    field of 0.9 v), the device remap, the quality metric with the
+    geometric factors, the residual, the element and face Jacobians, the
+    block-QR factorization, the banded solve and one step's diagnostics
+    read back.  Returns (pieces, case): ``case.finish`` closes its CSVs."""
+    from .apps import ablation_case2_2
+    from .solvers.blocksolve import make_scan_block_solver
+
+    c = ablation_case2_2.Case22(
+        {**cfg, "t_final": 0.1, "scan_stepping": False,
+         "output_path": os.path.join(cfg["output_path"] + "_pieces")}, dev,
+        torch.float64)
+    m = ablation_case2_2.ScanMotion(c, 1)
+    ops = c.ops
+    tens = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    T, p, verts = tens(r["T"]), tens(r["p"]), tens(r["vertices"])
+    X = r["state"].extent.to(dev)
+    bc, branch = c.boundary(0.3)
+    dt = 0.1
+    v_rec, mean_v = m.velocity(T, p, X, bc, branch, verts)
+    wy_prev = m.smoother.solve(verts, 0.9 * v_rec).x
+    Xn, _, _, wy, wq, _, J_pre = m.move(X, verts, mean_v * 0, wy_prev,
+                                        v_rec, mean_v, dt)
+    gf = ops.geometric_factors(verts)
+    g = c.geometry(verts, wq, J_pre)
+    To, po = ops.values_at_qp(T - 1.0), ops.values_at_qp(p)
+    args = (To, po, X, dt, bc, branch, g)
+    blocks, face = c.jacobians(T, p, *args)
+    bks = make_scan_block_solver(c.cfg, c.fes.element_dofs, c.n, c.ess_T,
+                                 c.ess, c.fes.node_positions, device=dev)
+    tr = c.sys.trace
+    fac = bks.prepare(blocks, face=face, face_elem=tr.elem)
+    R = c.residual(T, p, *args)
+    arrays = c.sys.advance_state_arrays(X, T, p, dt)
+    pieces = {
+        "recession velocity": lambda: m.velocity(T, p, X, bc, branch, verts),
+        "smoothing CG, cold start": lambda: m.smoother.solve(verts, v_rec),
+        "smoothing CG, warm start": lambda: m.smoother.solve(
+            verts, v_rec, x0=wy_prev),
+        "device remap": lambda: m.remap(X, verts, gf.xq, wq, dt),
+        "quality metric + geometric factors": lambda: (
+            m.min_quality(verts), ops.geometric_factors(verts).detJ),
+        "residual (domain + SEB face)": lambda: c.residual(T, p, *args),
+        "vmap(jacfwd) element Jacobians": lambda: c.sys.element_jacobians(
+            T, p, To, po, X, dt, gf=g.gf, wq=g.wq, gcl=g.gcl,
+            ale_toggles=c.ale_toggles),
+        "vmap(jacfwd) SEB face Jacobians": lambda: c.sys.seb_face_jacobians(
+            T, p, X, bc, *c.seb(branch), vertices=verts),
+        f"{type(bks).__name__} factorization": lambda: bks.prepare(
+            blocks, face=face, face_elem=tr.elem),
+        "banded solve": lambda: bks.solve(fac, -R, rtol=1e-10),
+        "diagnostics of one step, read back": lambda: [
+            x.cpu() for x in m.step_diagnostics(T, p, X, arrays[6],
+                                                arrays[1], verts, bc,
+                                                branch)],
+    }
+    del Xn, wy
+    return pieces, c
+
+
+def profile_ablation_case22(n, dev, rng, out, nx=11, ny=239):
+    """One step of the ablation case-2.2 driver on chip_smoke's phase-13
+    strip (11 x 239 cells split into 5,258 triangles, 5,760 DOFs) with the
+    synthetic deck, B' table and schedule, float64, through the eager
+    host-LU path and through ``scan_stepping``: the driver run whole for 1
+    and for 2 steps under the profiler, differenced (device busy and idle
+    share of step 2, which recedes); then each piece alone
+    (``case22_pieces``: host ms with the device synchronized, and device
+    busy)."""
+    from .apps import ablation_case2_2
+    from .core import make_strip_mesh_2d
+
+    sched = os.path.join(os.path.dirname(DECK), "surface_bc_case21.dat")
+    with tempfile.TemporaryDirectory() as tmp:
+        strip = write_gmsh(make_strip_mesh_2d(nx, ny, geom="triangle"),
+                           os.path.join(tmp, "strip.msh"))
+        cfg = {"mesh_file": strip, "material_file": DECK,
+               "boundary_conditions_file": sched, "order": 1, "dt": 0.1,
+               "bdr_attr_top": 3, "bdr_attr_bottom": 1, "probe_x": 0.00125,
+               "newton_print_level": 0, "save_paraview": False,
+               "output_path": os.path.join(tmp, "out")}
+        run = lambda steps, scan: ablation_case2_2.run(
+            {**cfg, "t_final": steps * 0.1, "scan_stepping": scan},
+            device=dev)
+        run(1, False)  # warm: the AD transforms' first use, the allocator
+        for scan in (False, True):
+            w1, b1, _ = device_busy(lambda: run(1, scan))
+            w2, b2, r = device_busy(lambda: run(2, scan))
+            wall, busy = w2 - w1, b2 - b1
+            out(f"== ablation_case2_2 "
+                f"{'scan_stepping' if scan else 'eager host LU'}, "
+                f"{2 * r['fes'].nscalar} DOFs, step 2 (chemistry_blowing, "
+                f"moved {r['moved'][1]}): wall {wall:.1f} ms, device busy "
+                f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}; "
+                f"{r['newton_iters'][1]} Newton solves; the driver's own "
+                "clock, ms: " + ", ".join(f"{k} {1e3 * v:.1f}" for k, v in
+                                         r["timing"][1].items()))
+        pieces, c = case22_pieces(cfg, r, dev)
+        for label, fn in pieces.items():
+            ms = host_ms(fn, reps=3, warmup=1)
+            profiled(label, fn, 3, out, top=5)
+            out(f"   {label}: unprofiled {ms:.3f} ms per call (host clock, "
+                "device synchronized)")
+        c.finish({k: 0.0 for k in ablation_case2_2.TIMING_KEYS
+                  + ("newton", "total")}, 0.0)
+
+
 SECTIONS = {"operators": profile_operators, "vcycle": profile_vcycle,
             "zchain": profile_zchain, "driver": profile_driver,
             "nonlinear": profile_nonlinear,
             "elasticity_cg": profile_elasticity_cg,
             "ablation": profile_ablation,
-            "ablation_case21": profile_ablation_case21}
+            "ablation_case21": profile_ablation_case21,
+            "ablation_case22": profile_ablation_case22}
 
 
 def main(argv=None):

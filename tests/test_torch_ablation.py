@@ -7,14 +7,15 @@ residual and the Jacobians), float64 on the CPU.  The residual to 1e-12,
 the AD element Jacobians to 1e-10, the state advance and the top-boundary
 mass flux to 1e-12 (relative to the largest entry); the lattice residual
 equals the generic one to 1e-13; ``jacobian_check`` passes; the case-2.2
-methods raise (the case-2.1 SEB terms are held in
-``test_torch_ablation_seb.py``)."""
+recession velocity and host mass-equation probes match JAX's (the case-2.1
+SEB terms are held in ``test_torch_ablation_seb.py``)."""
 
 import numpy as np
 import pytest
 import torch
 
-from torch_ablation_helpers import ablation_pair, rel
+from torch_ablation_helpers import (  # noqa: F401
+    ablation_pair, rel, one_torch_thread)
 
 CASES = [(3, 30, 1), (2, 12, 2)]
 
@@ -81,11 +82,35 @@ def test_jacobian_check_passes(pair):
 
 
 def test_case2_methods_raise(pair):
-    psys = pair["psys"]
-    for name in ("top_boundary_recession_velocity", "mass_eq_probe",
-                 "mass_eq_probe_scan"):
-        with pytest.raises(NotImplementedError, match="case 2.2.*ROADMAP"):
-            getattr(psys, name)()
+    """The case-2.2 methods no longer raise: the recession velocity and the
+    host mass-equation probes run on this pair and match JAX's to 1e-12
+    (held on a triangle strip with the device probes too in
+    ``test_torch_ablation_ale.py``)."""
+    import jax.numpy as jnp
+
+    from cmfem_tpu.physics import bprime as JB, seb as JS, surface_bc as JBC
+    from cmfem_tpu_torch.physics import bprime as PB, seb as PS, \
+        surface_bc as PBC
+
+    jsys, psys = pair["jsys"], pair["psys"]
+    T, p = pair["T"], pair["p"]
+    bcargs = (101325.0, 0.3, 1.5e6, 10.0, 300.0, True, True, 1)
+    a = jsys.top_boundary_recession_velocity(
+        jnp.asarray(T), jnp.asarray(p), pair["jstate"],
+        JBC.BoundaryState(*bcargs), "chemistry_blowing",
+        JS.SurfaceFluxModel(case22=True), JB.BPrimeTable.synthetic_tacot())
+    b = psys.top_boundary_recession_velocity(
+        torch.tensor(T), torch.tensor(p), pair["state"],
+        PBC.BoundaryState(*bcargs), "chemistry_blowing",
+        PS.SurfaceFluxModel(case22=True), PB.BPrimeTable.synthetic_tacot())
+    assert torch.is_tensor(b) and rel(a, b) < 1e-12
+    pts = np.array([[0.00125, 0.049], [0.002, 0.02], [0.00125, 0.06]])
+    a = jsys.mass_eq_probe(jnp.asarray(T), jnp.asarray(p), pair["jstate"],
+                           pts)
+    b = psys.mass_eq_probe(torch.tensor(T), torch.tensor(p), pair["state"],
+                           pts)
+    assert np.isnan(b[2]).all() and np.isnan(a[2]).all()
+    assert rel(a[:2], b[:2]) < 1e-12
 
 
 @pytest.mark.gpu

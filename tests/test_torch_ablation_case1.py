@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ablation_helpers import FIXTURE, TOP, strip_file
+from torch_ablation_helpers import (  # noqa: F401
+    FIXTURE, TOP, strip_file, one_torch_thread)
 
 CSVS = ("temperature_probes.csv", "mass_metrics.csv",
         "newton_history_ablation_case1_2D.csv")

@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ablation_helpers import FIXTURE, TOP, strip_file
+from torch_ablation_helpers import (  # noqa: F401
+    FIXTURE, TOP, strip_file, one_torch_thread)
 
 SCHED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                      "surface_bc_case21.dat")

@@ -9,7 +9,7 @@ boundary terms to 1e-12 (relative to the largest entry).
 ``jacobian_check`` with ``seb`` passes on each branch from a state whose
 blowing fixed point lies inside the table, returns None where the JAX
 package skips (a B' clamp with chemistry on), and raises on a face
-Jacobian scaled by 1.1; the case-2.2 methods still raise."""
+Jacobian scaled by 1.1."""
 
 from types import SimpleNamespace
 
@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_ablation_helpers import TOP, ablation_pair, rel
+from torch_ablation_helpers import (  # noqa: F401
+    TOP, ablation_pair, rel, one_torch_thread)
 
 CASES = [(3, 30, 1), (2, 12, 2)]
 BRANCHES = ["chemistry_blowing", "chemistry_no_blowing", "cooling_standard",

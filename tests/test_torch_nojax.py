@@ -59,7 +59,12 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.apps.ablation_case1",
             "cmfem_tpu_torch.physics.surface_bc",
             "cmfem_tpu_torch.physics.bprime", "cmfem_tpu_torch.physics.seb",
-            "cmfem_tpu_torch.apps.ablation_case2_1"} <= set(mods)
+            "cmfem_tpu_torch.apps.ablation_case2_1",
+            "cmfem_tpu_torch.apps.ablation_case2_2",
+            "cmfem_tpu_torch.apps.ablation_case2_2_test",
+            "cmfem_tpu_torch.motion.recession",
+            "cmfem_tpu_torch.motion.remap",
+            "cmfem_tpu_torch.core.tracksample"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"

@@ -5,6 +5,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -13,11 +14,24 @@ DT = 0.1
 TOP = 3          # make_strip_mesh_2d's top boundary attribute
 
 
-def strip_file(tmpdir, nx, ny):
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while a module's parity runs run (imported
+    by the ablation test modules): their strips are small, so the threads
+    only contend with the other test workers' for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def strip_file(tmpdir, nx, ny, geom="quad"):
+    """A graded strip's GMSH file (``geom``: "quad" or "triangle")."""
     from cmfem_tpu_torch.core import make_strip_mesh_2d, write_gmsh
 
-    return write_gmsh(make_strip_mesh_2d(nx, ny),
-                      os.path.join(str(tmpdir), f"strip_{nx}x{ny}.msh"))
+    return write_gmsh(make_strip_mesh_2d(nx, ny, geom=geom),
+                      os.path.join(str(tmpdir),
+                                   f"strip_{geom}_{nx}x{ny}.msh"))
 
 
 def heating_fields(xy, hot=1.0, gas=1.0):
@@ -31,7 +45,7 @@ def heating_fields(xy, hot=1.0, gas=1.0):
     return T, p
 
 
-def ablation_pair(tmpdir, nx, ny, order):
+def ablation_pair(tmpdir, nx, ny, order, geom="quad"):
     """Both packages' AblationSystem on one strip file, the JAX state after a
     long step of the cooler field (extents part-way), carried into the port
     with ``ablation_state_from_numpy``, the step's inputs (the new (T, p),
@@ -48,7 +62,7 @@ def ablation_pair(tmpdir, nx, ny, order):
     from cmfem_tpu_torch.physics.ablation import AblationSystem
     from cmfem_tpu_torch.physics.tacot import TacotMaterial
 
-    path = strip_file(tmpdir, nx, ny)
+    path = strip_file(tmpdir, nx, ny, geom)
     qo = max(2, 2 * order + 2)
     jfes = JFESpace(jload(path), order)
     jsys = JSystem(JSpaceOps(jfes, quad_order=qo), JMat.load_yaml(FIXTURE),
@@ -90,3 +104,81 @@ def rel(a, b):
     a = np.asarray(a, dtype=np.float64)
     b = b.detach().cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
     return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
+
+
+# -- the case-2.2 driver parity files ----------------------------------------
+
+FIXTURES = os.path.dirname(FIXTURE)
+SCHED = os.path.join(FIXTURES, "surface_bc_case21.dat")
+AMARYLLIS = os.path.join(FIXTURES, "amaryllis_mass_synthetic.dat")
+CSVS22 = ("temperature_probes.csv", "mass_metrics.csv",
+          "boundary_diagnostics.csv",
+          "newton_history_ablation_case2_2_2D.csv", "pressure_probes.csv",
+          "mesh_diagnostics.csv", "mass_eq_probe_diagnostics.csv")
+
+
+def case22_cfg(strip, out, **extra):
+    """A case-2.2 config on a strip file: the synthetic deck, the schedule
+    and Amaryllis fixtures, 6 steps of dt 0.1."""
+    return {"mesh_file": strip, "material_file": FIXTURE,
+            "boundary_conditions_file": SCHED,
+            "amaryllis_mass_file": AMARYLLIS, "order": 1, "dt": 0.1,
+            "t_final": 0.6, "bdr_attr_top": TOP, "bdr_attr_bottom": 1,
+            "probe_x": 0.00125, "newton_print_level": 0,
+            "save_paraview": False, "output_every": 2,
+            "output_path": str(out), **extra}
+
+
+def read_csv(path):
+    with open(path) as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    return rows[0], np.array([[float(v) for v in r] for r in rows[1:]])
+
+
+def newton_counts(path):
+    """Linear solves per step, from a Newton CSV (rows per step - 1)."""
+    _, rows = read_csv(path)
+    steps = rows[:, 0].astype(int)
+    return [int((steps == s).sum()) - 1 for s in np.unique(steps)]
+
+
+def csv_close(a, b, what, rtol=1e-7, floor=1e-12, newton_rtol=1e-7):
+    """rtol, with a floor of 1e-12 x the column's largest value (values
+    that are zero in one run and roundoff in the other), NaN in the same
+    places; the residual and update columns of a Newton CSV to
+    ``newton_rtol`` or within ``floor`` x the column's largest value."""
+    assert a.shape == b.shape, what
+    assert np.array_equal(np.isnan(a), np.isnan(b)), what
+    a, b = np.nan_to_num(a), np.nan_to_num(b)
+    scale = np.abs(b).max(axis=0)
+    atol = np.where(scale > 0, 1e-12 * scale, 1e-300)
+    rt = np.full(b.shape[1], rtol)
+    if what.startswith("newton"):
+        cols = [3, 5, 6, 8]
+        atol[cols] = floor * scale[cols]
+        rt[cols] = newton_rtol
+    bad = np.abs(a - b) > rt * np.abs(b) + atol
+    assert not bad.any(), (what, np.argwhere(bad)[:5])
+
+
+def hold_to_jax(d_port, d_jax, floor=1e-12, newton_rtol=1e-7,
+                csvs=CSVS22):
+    """Every CSV of a port run against the JAX run's: the tolerance echo
+    as text, the recession metrics to 1e-12, the rest by ``csv_close``."""
+    with open(d_port / "amaryllis_error_tolerances.csv") as fp, \
+            open(d_jax / "amaryllis_error_tolerances.csv") as fj:
+        assert fp.read() == fj.read()
+    metrics = []
+    for d in (d_port, d_jax):
+        with open(d / "recession_error_metrics.csv") as f:
+            metrics.append([line.strip().split(",") for line in f])
+    (hp, *a), (hj, *b) = metrics
+    assert hp == hj == ["metric", "value"] and len(a) == len(b) == 4
+    assert [r[0] for r in a] == [r[0] for r in b]
+    np.testing.assert_allclose([float(r[1]) for r in a],
+                               [float(r[1]) for r in b], rtol=1e-12, atol=0)
+    for name in csvs:
+        hp, a = read_csv(d_port / name)
+        hj, b = read_csv(d_jax / name)
+        assert hp == hj, name
+        csv_close(a, b, name, floor=floor, newton_rtol=newton_rtol)
