@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. checks: a CUDA device, the card's name and power limit (nvidia-smi),
-     the three kernel libraries built from cmfem_tpu_torch/csrc/, one nvcc
+     the four kernel libraries built from cmfem_tpu_torch/csrc/, one nvcc
      each, all started together (build time and ptxas registers/spills
      printed; the sum-factorization lane kernel's instantiations and the
      float32 instantiations of the tiled B^T D B kernel, hexes at orders
@@ -23,17 +23,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      changes from run to run); on the same operators (phase 8a) the z-chain kernel against
      its plain version on the same x/y fields, and the whole
      ``bind_zchain`` apply against ``bind()``, to the same tolerances;
-  3. the B^T D B kernel against its plain version: hexes at orders 1-4 on
-     (3,4,5) and quads at orders 1-4 on (7,5), variable conductivity,
-     float64 to 1e-12 max|y|, float32 to 1e-5 max|y| (each output sums
-     m*nq <= 256 products twice, in another order); those operators say
-     ``path == "cuda-btdb"``.  Elements the kernel has no instantiation for
-     (triangles at orders 1-3, hexes at orders 2 and 4 under a rule with
-     p + 2 points per axis; the spaces of both packages stop at order 4)
-     are refused at construction in ``btdb_apply``'s words; built with
-     ``use_kernel=False`` they say ``path == "plain-btdb"``, leave the
-     kernel's launch count alone and agree with ``BilinearForm.apply`` to
-     the same tolerances;
+  3. the B^T D B kernel against its plain version at every shape of
+     ``kernels.btdb.KERNEL_SHAPES`` (the (m, nd, nq) of the JAX package's
+     spaces at orders 1-4): operators on hexes (3,4,5), quads (7,5),
+     triangles (7,5) and tets (two tets refined twice, ``tet_mesh(2)``),
+     orders 1-4 under q1 = p + 1, p + 2 and 3 points per axis, variable
+     conductivity; each says ``path == "cuda-btdb"``, float64 to 1e-12
+     max|y|, float32 to 1e-5 max|y| (each output sums m*nq <= 864
+     products twice, in another order), and its apply agrees with
+     ``BilinearForm.apply`` to the same tolerances, as does the operator
+     built with ``use_kernel=False`` (``path == "plain-btdb"``, no launch);
+     ``StructuredPAOperator`` at p + 2 points per axis takes the kernel; a
+     shape outside the set (an order-5 quad) is refused in
+     ``btdb_apply``'s words; the 32 shapes this slice added timed alone at
+     110,592 elements (float32, kernel and plain version in turns, CUDA
+     graphs), each beside its bound;
   4. slice 1's main path: ``entry(n=48, order=2)`` (912,673 DOFs, float32),
      one GMRES backward-Euler step through the z-periodic kernel, checked
      for convergence and against the same step through the plain version;
@@ -173,8 +177,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      resumed from (a)'s t = 0.3 ALE checkpoint ends at (a)'s T, p and
      vertices; (d) the study variant (GCL storage, the Amaryllis metrics
      against ``tests/fixtures/amaryllis_mass_synthetic.dat``), 1 step;
-     peak device memory.  No kernel lies on this path; no launch count
-     moves.
+     peak device memory; (e) the smoothing CG of (b)'s pieces repeated 10
+     times cold and 10 times warm on identical inputs: the iteration counts
+     and the iterates are the same bit for bit (ROADMAP C10).  No kernel
+     lies on this path; no launch count moves.
+ 14. slice 11 (``run_linemg``, ``run_distributed``, ``run_gloo_on_card``):
+     (a) ``BlockNewtonKrylov(pc="linemg")``, GMRES(400) at rtol 1e-12, on
+     the first Newton system of 11a (5,760 DOFs) and of 11d's strip (86,130
+     DOFs): the inner iterations equal the JAX package's on the same
+     systems (``JAX_14A_LINEMG``), beside 11c's point-block count; set-up
+     ms and solve s; the true relative residual on the host matrix; the
+     direction equal to the direct solve's (host ``splu``,
+     ``BlockTridiagDirect``) to 1e-8; (b) the distributed operator layer in
+     a world of one rank over NCCL, at 48^3, order 2 (912,673 DOFs), float64
+     and float32: ``ShardedPoissonApply`` (CDR form) and
+     ``DofPartitionedOperator`` (SPD form) against ``BilinearForm.apply``,
+     ``ShardedSumFactOperator`` against ``SumFactoredOperator``'s plain chain
+     (float64 1e-12, float32 1e-5 of max|y|), a Jacobi-CG on the
+     ``DofPartitionedOperator`` with the single-device CG's iteration count
+     (x to 1e-8), each apply's ms beside the single-device path's, peak
+     device memory; (c) two gloo ranks on the one card (NCCL takes one rank
+     per card), 8^3 at order 2: each operator against its single-device
+     apply (1e-12) or gloo's refusal named.  No kernel lies on these paths;
+     no launch count moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
@@ -183,8 +208,8 @@ FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
 sum-factorization kernel also ``earlier_ms``, the colour design's time in
 the same run), before it the drivers' JSON records (phase 9's, phase 10's,
 phase 11's, phase 12's and phase 13's: DOFs, steps, seconds per step,
-Newton and Krylov iterations, errors; phases 10-13 with the card), then the
-card's name
+Newton and Krylov iterations, errors; phases 10-13 with the card; phase
+14's {"linemg", "distributed", "gloo_on_card"}), then the card's name
 and power limit, and
 {"ok": true,
 "device": {...}}.  Imports no JAX.
@@ -226,17 +251,19 @@ from cmfem_tpu_torch.apps import (  # noqa: E402
 from cmfem_tpu_torch.core import pointlocate  # noqa: E402
 from cmfem_tpu_torch.kernels import btdb as kbtdb  # noqa: E402
 from cmfem_tpu_torch.kernels import build as kbuild  # noqa: E402
+from cmfem_tpu_torch.kernels import linemg as klmg  # noqa: E402
 from cmfem_tpu_torch.kernels import sumfact as ksum  # noqa: E402
 from cmfem_tpu_torch.kernels import zchain as kz  # noqa: E402
 from cmfem_tpu_torch.ops import BilinearForm, SpaceOps  # noqa: E402
 from cmfem_tpu_torch.ops.partial import (  # noqa: E402
-    PAOperator, StructuredPAOperator)
+    PAOperator, StructuredGrid3D, StructuredPAOperator)
 from cmfem_tpu_torch.ops.sumfact import SumFactoredOperator  # noqa: E402
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 F32 = torch.float32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3 (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores (data sheet)
+F64_FLOP_PER_S = 34e12     # float64 outside the tensor cores (data sheet)
 # the launch counters each operator_paths path must move, and only they
 PATH_COUNTERS = {
     "sumfact": set(), "sumfact-periodic": set(),
@@ -269,6 +296,27 @@ def disc_mesh(n):
     return mesh.with_vertices(np.stack(
         [x * np.sqrt(1.0 - 0.5 * y * y), y * np.sqrt(1.0 - 0.5 * x * x)],
         axis=1))
+
+
+def tet_mesh(levels):
+    """Two tets sharing a face, (0,0,0)-(1,0,0)-(0,1,0)-(0,0,1) and
+    (1,0,0)-(0,1,0)-(0,0,1)-(1,1,1), refined uniformly ``levels`` times
+    (2 * 8^levels tets; boundary attributes 1-3)."""
+    from cmfem_tpu_torch.core.mesh import Mesh
+    from cmfem_tpu_torch.core.reference_elements import (
+        GEOM_FACES, TETRAHEDRON, TRIANGLE)
+
+    verts = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                      [0.0, 0.0, 1.0], [1.0, 1.0, 1.0]])
+    conn = np.array([[0, 1, 2, 3], [1, 2, 3, 4]], dtype=np.int32)
+    faces = [tuple(int(e[i]) for i in f) for e in conn
+             for f in GEOM_FACES[TETRAHEDRON]]
+    faces = [f for f in faces if set(f) != {1, 2, 3}]  # the shared face
+    mesh = Mesh(dim=3, geom=TETRAHEDRON, vertices=verts, elem_conn=conn,
+                elem_attr=np.ones(2, dtype=np.int32), bdr_geom=TRIANGLE,
+                bdr_conn=np.asarray(faces, dtype=np.int32),
+                bdr_attr=np.array([1, 2, 3, 1, 2, 3], dtype=np.int32))
+    return mesh.uniform_refine(levels) if levels else mesh
 
 
 def cdr(f):
@@ -309,11 +357,12 @@ def compare(fk, fp, *args):
     return rel_err(yk, yp), float((yk - yp).abs().max())
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``nbytes`` and do ``flops`` float32 operations."""
+    to move ``nbytes`` and do ``flops`` operations at ``flop_rate`` (float32
+    by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -343,6 +392,49 @@ def btdb_flops(BG, Dflat):
     m x m block per quadrature point, per element."""
     (mm, nq, ne), (mnq, nd) = Dflat.shape, BG.shape
     return ne * (4 * mnq * nd + 2 * mm * nq)
+
+
+# the B1 shapes of earlier slices: hexes and quads at orders 1-4 with
+# p + 1 points per axis
+B1_EARLIER = {(4, 8, 8), (4, 27, 27), (4, 64, 64), (4, 125, 125),
+              (3, 4, 4), (3, 9, 9), (3, 16, 16), (3, 25, 25)}
+
+
+def time_new_btdb_shapes(dev, ne):
+    """Each B1 shape of this slice (KERNEL_SHAPES less B1_EARLIER) on ``ne``
+    elements of seeded float32 data: the kernel's and the plain version's
+    device ms per call (graph_ms, in turns plain, kernel, kernel, plain),
+    the bound and the error; {"m3 nd10 nq16": {...}, ...}."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for m, nd, nq in sorted(set(kbtdb.KERNEL_SHAPES) - B1_EARLIER):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                         dtype=F32)
+        BG, u, D = rnd(m * nq, nd), rnd(nd, ne), rnd(m * m, nq, ne)
+        packed = kbtdb.pack_bg(BG, m, nq)
+        kfn = lambda: kbtdb.btdb_apply(BG, u, D, packed)
+        pfn = lambda: kbtdb.btdb_plain(BG, u, D)
+        err, abs_err = compare(lambda v: kbtdb.btdb_apply(BG, v, D, packed),
+                               lambda v: kbtdb.btdb_plain(BG, v, D), u)
+        assert err <= TOL[F32], (m, nd, nq, err)
+        t = {"k": [], "p": []}
+        for name in ("p", "k", "k", "p"):
+            t[name].append(graph_ms(kfn if name == "k" else pfn, calls=2,
+                                    reps=3))
+        bnd = bound(nbytes(BG, u, D, u), btdb_flops(BG, D))
+        rec = {"ne": ne, "ms": min(t["k"]), "plain_ms": min(t["p"]),
+               "bound_ms": bnd[0], "bound_by": bnd[1],
+               "max_abs_err": abs_err, "max_rel_err": err,
+               "design": "tiled" if packed is not None else "per-element"}
+        out[f"m{m} nd{nd} nq{nq}"] = rec
+        log(f"phase 3: new shape (m, nd, nq) = ({m}, {nd}, {nq}), ne={ne}, "
+            f"float32, {rec['design']}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"{100 * bnd[0] / rec['ms']:.0f}% of bound; max|k-p|/max|p| "
+            f"{err:.2e}")
+        del BG, u, D, packed
+    torch.cuda.empty_cache()
+    return out
 
 
 def stacked(fn):
@@ -408,12 +500,15 @@ def in_turns(kernel, plain, reps=50, graph=False):
 def reset_counts():
     ksum.launches = ksum.launches_fulld = ksum.launches_colour = 0
     kbtdb.launches = kz.launches = kz.launches_periodic = 0
+    klmg.launches_factor = klmg.launches_solve = 0
 
 
 def counts():
     return {"sumfact": ksum.launches, "sumfact_fulld": ksum.launches_fulld,
             "sumfact_colour": ksum.launches_colour, "btdb": kbtdb.launches,
-            "zchain": kz.launches, "zchain_periodic": kz.launches_periodic}
+            "zchain": kz.launches, "zchain_periodic": kz.launches_periodic,
+            "line_factor": klmg.launches_factor,
+            "line_solve": klmg.launches_solve}
 
 
 def lane_kernel_resources(nvcc_log):
@@ -1476,6 +1571,27 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
               + ("newton", "total")}, 0.0)
     log("phase 13b: ms per call (CUDA events): " + ", ".join(
         f"{k} {v:.3f}" for k, v in piece_ms.items()))
+
+    # -- 13e. ROADMAP C10: is the smoothing CG repeatable?  The 5,760-DOF
+    # LaplacianSmoother.solve of 13b's pieces, 10 times cold and 10 times
+    # warm (13b's warm start) on identical inputs: each solve's iteration
+    # count and the largest difference between the iterates
+    repeat = {}
+    for label, kind in (("smoothing CG, cold start", "cold"),
+                        ("smoothing CG, warm start", "warm")):
+        sols = [pieces[label]() for _ in range(10)]
+        repeat[kind] = {
+            "iters": [s.iters for s in sols],
+            "rel_residual": [s.rel_residual for s in sols],
+            "max_abs_dx": max(float((s.x - sols[0].x).abs().max())
+                              for s in sols),
+            "bitwise_equal": all(torch.equal(s.x, sols[0].x) for s in sols)}
+        log(f"phase 13e: {label}, 10 repeats: iterations "
+            f"{repeat[kind]['iters']}, max|x_i - x_0| "
+            f"{repeat[kind]['max_abs_dx']:.3e}, bit for bit "
+            f"{repeat[kind]['bitwise_equal']}")
+        del sols
+    assert all(r["bitwise_equal"] for r in repeat.values()), repeat
     del pieces, c
 
     # -- 13c. the restart: an eager run from 13a's t = 0.3 checkpoint, on
@@ -1526,7 +1642,8 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
         "krylov_iters_per_solve": rb["krylov_iters"],
         "rows": rows_b, "vs_jax_scan": d_jax_b, "csv_vs_host_lu": d_csv,
         "vertices_vs_host_lu_m": d_verts, "T_vs_host_lu": d_T,
-        "recession_vs_host_lu": d_rec, "ms_per_call": piece_ms})
+        "recession_vs_host_lu": d_rec, "ms_per_call": piece_ms,
+        "smoothing_cg_repeats": repeat})
     records.append({
         "driver": "ablation_case2_2", "variant": "restart from t = 0.3",
         "steps": len(rc["timing"]), "run_s": secs_c,
@@ -1537,6 +1654,425 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
         "steps": len(rd["timing"]), "run_s": secs_d,
         "s_per_step": per_step_d, "recession_metrics": metrics})
     return records
+
+
+# inner GMRES iterations of the JAX package's BlockNewtonKrylov(pc="linemg")
+# (restart 400, rtol 1e-12) on phase 14a's two systems, the first Newton
+# system of phase 11a's step 1 on the strip and on the strip refined twice,
+# built by the port on a CPU and handed to both packages as numpy arrays:
+#   python tests/jax_linemg_counts.py
+# (about three minutes on a CPU).
+JAX_14A_LINEMG = {5_760: 35, 86_130: 56}
+
+
+def first_newton_system(device, tmp, ref_levels, label):
+    """Case 1's first Newton system of step 1 (phase 11c's) on phase 11's
+    strip refined ``ref_levels`` times: (case, element blocks, R)."""
+    from cmfem_tpu_torch.apps import ablation_case1
+    from cmfem_tpu_torch.core import make_strip_mesh_2d
+
+    strip = os.path.join(tmp, "strip14.msh")
+    if not os.path.exists(strip):
+        write_gmsh(make_strip_mesh_2d(11, 239), strip)
+    cfg = {"mesh_file": strip, "material_file": TACOT_DECK, "order": 1,
+           "dt": 0.1, "t_final": 0.1, "bdr_attr_top": 3, "probe_x": 0.00125,
+           "newton_print_level": 0, "save_paraview": False,
+           "serial_ref_levels": ref_levels,
+           "output_path": os.path.join(tmp, f"c1_{label}")}
+    c = ablation_case1.Case1(cfg, device, torch.float64)
+    T, p = c.initial_fields()
+    X = c.initial_state().extent
+    To, po = c.ops.values_at_qp(T), c.ops.values_at_qp(p)
+    T, p = c.enforce_bc(T, p, ablation_case1.evaluate_schedule(c.schedule,
+                                                               c.dt))
+    R = c.residual(T, p, To, po, X, c.dt)
+    blocks = c.sys.element_jacobians(T, p, To, po, X, c.dt)
+    return c, blocks, R
+
+
+def linemg_kernels_vs_plain(device, hierarchy, timing=False):
+    """The line-MG kernels against their plain versions at the finest level
+    of a hierarchy of phase 14a (outside the counted runs): the kernels'
+    factors and solve of a seeded r against the plain factors and solve,
+    and the solve kernel on the plain factors against the plain solve
+    (max|x_k - x_p| / max|x_p|, float64; the QR's signs may differ, so
+    factors are compared through their solves).  With ``timing`` each
+    kernel and its plain version is timed there too (CUDA events; the plain
+    factorization once, it takes seconds), beside its bound."""
+    gen = torch.Generator(device=device).manual_seed(14)
+    SS, fac = hierarchy[0]
+    NY, NX = SS.shape[2], SS.shape[3]
+    plain, plain_s = timed(lambda: tuple(
+        t.contiguous() for t in klmg.line_factor_plain(SS)))
+    r = torch.randn((NY, NX, 2), generator=gen, dtype=SS.dtype,
+                    device=device)
+    xp = klmg.line_solve_plain(plain, r)
+    scale = float(xp.abs().max())
+    abs_errs = {key: float((klmg.line_solve(fk, r) - xp).abs().max())
+                for key, fk in (("factor_and_solve", fac), ("solve", plain))}
+    errs = {k: v / scale for k, v in abs_errs.items()}
+    log(f"phase 14a: line-MG kernels vs plain at the finest level (NY={NY}, "
+        f"NX={NX}; {len(hierarchy)} levels), float64: factor + solve "
+        f"{errs['factor_and_solve']:.3e}, solve on the plain factors "
+        f"{errs['solve']:.3e} (tol 1e-8)")
+    assert max(errs.values()) <= 1e-8, errs
+    out = {"levels": len(hierarchy), "NY": NY, "NX": NX,
+           "max_rel_err": errs, "max_abs_err": abs_errs}
+    if not timing:
+        return out
+    isz = SS.element_size()
+    rows = (NY - 1) * NX
+    fac_bytes = isz * (rows * (3 * 4 + 16) + NX * 8)
+    out["line_factor"] = {
+        "ms": median_ms(lambda: klmg.line_factor(SS), reps=5, warmup=1),
+        "plain_ms": 1e3 * plain_s,
+        # reads the three stencil planes, writes the factors; ~330 flops a
+        # row (two 4-term reflectors, applied to 2 + 4 columns, Q formed)
+        "bound": bound(isz * 3 * 4 * NY * NX + fac_bytes, 330 * rows,
+                       F64_FLOP_PER_S)}
+    out["line_solve"] = {
+        "ms": median_ms(lambda: klmg.line_solve(fac, r), reps=5, warmup=1),
+        "plain_ms": median_ms(lambda: klmg.line_solve_plain(plain, r),
+                              reps=2, warmup=1),
+        # reads the factors and r once, writes x; 56 flops a row
+        "bound": bound(fac_bytes + 2 * isz * 2 * NY * NX, 56 * rows,
+                       F64_FLOP_PER_S)}
+    for name in ("line_factor", "line_solve"):
+        t = out[name]
+        log(f"phase 14a: {name} at NY={NY}, NX={NX}, float64: kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    return out
+
+
+def run_linemg(device, tmp, ref_levels=2, refs=True, pointblock_iters=None,
+               pointblock_refined=False):
+    """Phase 14a: ``BlockNewtonKrylov(pc="linemg")`` (restart 400, rtol
+    1e-12) on the first Newton system of 11a (5,760 DOFs) and of 11d's
+    strip (``ref_levels`` refinements, 86,130 DOFs): inner iterations,
+    set-up ms, solve s, the true relative residual on the host matrix, and
+    the direction against the direct solve (host ``splu`` on the strip,
+    ``BlockTridiagDirect`` refined), to 1e-8.  ``pointblock_iters`` is
+    phase 11c's point-block count on the first system; with
+    ``pointblock_refined`` the point-block GMRES(400) also runs on the
+    refined one (not in chip_smoke's run: ~30 s)."""
+    from cmfem_tpu_torch.apps import ablation_case1
+    from cmfem_tpu_torch.solvers.blocksolve import (
+        BlockNewtonKrylov, BlockTridiagDirect, strip_dof_lattice)
+
+    records = []
+    for lv in (0, ref_levels):
+        c, blocks, R = first_newton_system(device, tmp, lv, f"lmg{lv}")
+        b = -R
+        lat = strip_dof_lattice(c.fes.node_positions)
+        ed = c.fes.element_dofs
+        if lv == 0:
+            d_dir, dir_s = timed(lambda: c.host_lu(blocks).solve(b))
+            direct = "host splu"
+        else:
+            btd = BlockTridiagDirect(ed, c.n, c.ess, c.ess, dof_lattice=lat,
+                                     device=device)
+            d_dir, dir_s = timed(lambda: btd.solve(btd.prepare(blocks), b,
+                                                   rtol=1e-12).x)
+            direct = "BlockTridiagDirect"
+        A = c.host_matrix(blocks)
+        b_np = b.cpu().numpy()
+        true_rel = lambda x: float(np.linalg.norm(A @ x.cpu().numpy() - b_np)
+                                   / np.linalg.norm(b_np))
+        rec = {"driver": "ablation_case1", "variant":
+               "linemg (GMRES(400), rtol 1e-12), one Newton system",
+               "dofs": 2 * c.n, "direct": direct, "direct_s": dir_s,
+               "direct_true_rel": true_rel(d_dir)}
+        pcs = ("linemg", "pointblock") if (lv > 0 and pointblock_refined) \
+            else ("linemg",)
+        for pc in pcs:
+            bks = BlockNewtonKrylov(ed, c.n, c.ess, c.ess, restart=400,
+                                    maxiter=10, dof_lattice=lat, pc=pc,
+                                    device=device)
+            reset_counts()
+            fac, setup_s = timed(lambda: bks.prepare(blocks))
+            res, solve_s = timed(lambda: bks.solve(fac, b, rtol=1e-12))
+            launched = counts()
+            moved = {k for k, v in launched.items() if v}
+            assert moved == ({"line_factor", "line_solve"} if pc == "linemg"
+                             else set()), launched
+            d = rel2(res.x, d_dir)
+            tr = true_rel(res.x)
+            rec[pc] = {"inner_iters": res.inner_iters,
+                       "restart_cycles": res.iters,
+                       "converged_flag": res.converged,
+                       "setup_ms": 1e3 * setup_s, "solve_s": solve_s,
+                       "true_rel_residual": tr, "direction_vs_direct": d,
+                       "launches": {k: launched[k] for k in moved}}
+            log(f"phase 14a: {2 * c.n} DOFs, pc={pc}: {res.inner_iters} "
+                f"inner iterations ({res.iters} cycles), set-up "
+                f"{1e3 * setup_s:.1f} ms, solve {solve_s:.3f} s, true rel "
+                f"residual {tr:.3e} ({direct}: "
+                f"{rec['direct_true_rel']:.3e}), direction vs {direct} "
+                f"{d:.3e}" + (" (tol 1e-8)" if pc == "linemg" else "")
+                + f"; launches {rec[pc]['launches']}")
+            assert pc != "linemg" or d <= 1e-8, (pc, d)
+            if pc == "linemg":
+                hierarchy = fac[1]
+            del bks, fac
+        rec["kernels"] = linemg_kernels_vs_plain(device, hierarchy,
+                                                 timing=lv > 0)
+        del hierarchy
+        if lv == 0 and pointblock_iters is not None:
+            rec["pointblock"] = {"inner_iters": pointblock_iters,
+                                 "from": "phase 11c"}
+        if refs and JAX_14A_LINEMG.get(2 * c.n) is not None:
+            want = JAX_14A_LINEMG[2 * c.n]
+            log(f"phase 14a: {2 * c.n} DOFs: linemg inner iterations "
+                f"{rec['linemg']['inner_iters']} vs the JAX package's {want}")
+            assert rec["linemg"]["inner_iters"] == want
+        c.finish({k: 0.0 for k in ablation_case1.TIMING_KEYS
+                  + ("newton", "total")}, 0.0)
+        records.append(rec)
+        del c, blocks, R, A
+    return records
+
+
+def run_distributed(device, tmp, n=48, order=2, reps=10):
+    """Phase 14b: the distributed operator layer at full width in a world
+    of one rank over NCCL (gloo on a CPU), in this process: on n^3 hexes at
+    ``order`` (48^3, order 2: 912,673 DOFs), float64 and float32,
+    ``ShardedPoissonApply`` on the CDR form and ``DofPartitionedOperator``
+    on the SPD form against ``BilinearForm.apply`` (f64 1e-12, f32 1e-5 of
+    max|y|), ``ShardedSumFactOperator`` against ``SumFactoredOperator``'s
+    plain chain (same tolerances), and a Jacobi-CG on the
+    ``DofPartitionedOperator`` (f64, rtol 1e-8) with the single-device CG's
+    iteration count; each apply's ms (CUDA events, median of ``reps``)
+    beside the single-device path's; peak device memory."""
+    import torch.distributed as dist
+
+    from cmfem_tpu_torch.ops.sumfact_sharded import ShardedSumFactOperator
+    from cmfem_tpu_torch.parallel import (DofPartitionedOperator,
+                                          ShardedPoissonApply, init_rank,
+                                          make_device_mesh)
+    from cmfem_tpu_torch.solvers import cg, jacobi_preconditioner
+
+    cuda = torch.device(device).type == "cuda"
+    ms = (lambda fn: median_ms(fn, reps=reps, warmup=2)) if cuda else \
+        (lambda fn: timed(fn)[1] * 1e3)
+    init_rank(0, 1, os.path.join(tmp, "store14b"), device=device)
+    try:
+        mesh = make_device_mesh(1, device=device)
+        zmesh = make_device_mesh(1, axis="z", device=device)
+        rec = {"world_size": mesh.size, "backend": dist.get_backend()}
+        fes = FESpace(make_cartesian_mesh_3d(n, n, n), order)
+        gen = np.random.default_rng(14)
+        u64 = torch.as_tensor(gen.standard_normal(fes.nscalar),
+                              device=device)
+        b = torch.as_tensor(gen.standard_normal(fes.nscalar), device=device)
+        refs = {}
+        for dtype in (torch.float64, F32):
+            name = str(dtype)[6:]
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ops = SpaceOps(fes, quad_order=2 * order, device=device,
+                           dtype=dtype)
+            cform = cdr(BilinearForm(ops))
+            cdata = cform.assemble()
+            sform = BilinearForm(ops).add_mass(1.0).add_diffusion(0.1 * DT)
+            sdata = sform.assemble()
+            u = u64.to(dtype)
+            if dtype == torch.float64:
+                refs = {"cdr": cform.apply(cdata, u), "spd":
+                        sform.apply(sdata, u)}
+            out = {"dofs": fes.nscalar, "setup_s": time.perf_counter() - t0}
+            for label, build, form, data, key in (
+                    ("ShardedPoissonApply (CDR)", ShardedPoissonApply, cform,
+                     cdata, "cdr"),
+                    ("DofPartitionedOperator (SPD)", DofPartitionedOperator,
+                     sform, sdata, "spd")):
+                op, set_s = timed(lambda: build(ops, data, mesh))
+                dist_op = label.startswith("Dof")
+                y = op.from_dist(op(op.to_dist(u))) if dist_op else op(u)
+                err = rel_err(y.double(), refs[key])
+                ud = op.to_dist(u) if dist_op else u
+                out[label] = {"max_rel_err": err, "setup_s": set_s,
+                              "ms": ms(lambda: op(ud)),
+                              "single_device_ms": ms(
+                                  lambda: form.apply(data, u))}
+                log(f"phase 14b: {label} {name}: {fes.nscalar} DOFs, "
+                    f"max|y - BilinearForm.apply|/max|y| = {err:.3e} (tol "
+                    f"{TOL[dtype]:.0e}); apply {out[label]['ms']:.3f} ms, "
+                    f"single-device BilinearForm.apply "
+                    f"{out[label]['single_device_ms']:.3f} ms")
+                assert err <= TOL[dtype], (label, dtype, err)
+                if dist_op and dtype == torch.float64:
+                    diag = sform.assemble_diagonal(sdata)
+                    ref_cg, ref_s = timed(lambda: cg(
+                        lambda v: sform.apply(sdata, v), b,
+                        M=jacobi_preconditioner(diag), rtol=1e-8,
+                        maxiter=2000))
+                    dinv = op.to_dist(1.0 / diag)
+                    res, cg_s = timed(lambda: cg(
+                        op, op.to_dist(b), M=lambda r: dinv * r, rtol=1e-8,
+                        maxiter=2000, dot=op.dot, norm=op.norm))
+                    dx = rel2(op.from_dist(res.x), ref_cg.x)
+                    out[label]["cg"] = {
+                        "iters": res.iters, "single_device_iters":
+                        ref_cg.iters, "s": cg_s, "single_device_s": ref_s,
+                        "x_rel": dx, "converged": res.converged}
+                    log(f"phase 14b: Jacobi-CG (rtol 1e-8) on the "
+                        f"DofPartitionedOperator: {res.iters} iterations "
+                        f"(single device {ref_cg.iters}), {cg_s:.3f} s "
+                        f"({ref_s:.3f}); x vs single device {dx:.3e}")
+                    assert res.converged and res.iters == ref_cg.iters, \
+                        (res.iters, ref_cg.iters)
+                    assert dx <= 1e-8, dx
+                del op, y, ud
+            shop, set_s = timed(lambda: ShardedSumFactOperator(
+                ops, cdata, n, n, n, order, zmesh, dtype=dtype))
+            fn, D = shop.base.bind()
+            ul = shop.to_sharded(u)
+            err = rel_err(shop.from_sharded(shop(ul)), fn(u, D))
+            out["ShardedSumFactOperator (CDR)"] = {
+                "max_rel_err": err, "setup_s": set_s,
+                "ms": ms(lambda: shop(ul)),
+                "single_device_ms": ms(lambda: fn(u, D))}
+            log(f"phase 14b: ShardedSumFactOperator {name}: max|y - plain "
+                f"chain|/max|y| = {err:.3e} (tol {TOL[dtype]:.0e}); apply "
+                f"{out['ShardedSumFactOperator (CDR)']['ms']:.3f} ms, plain "
+                f"chain {out['ShardedSumFactOperator (CDR)']['single_device_ms']:.3f}"
+                f" ms")
+            assert err <= TOL[dtype], (dtype, err)
+            del shop, fn, D, ul
+            out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                                   if cuda else float("nan"))
+            log(f"phase 14b: {name}: peak device memory "
+                f"{out['peak_mem_gib']:.3f} GiB")
+            rec[name] = out
+            del ops, cform, cdata, sform, sdata
+        del refs
+    finally:
+        dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def dist_small_rank(n_devices, device, p2p_only=False):
+    """A rank of phase 14c: on n^3 hexes at order 2 (float64), the
+    collective operators (``ShardedPoissonApply``, ``DofPartitionedOperator``
+    with its Jacobi-CG against the single-device CG), or with ``p2p_only``
+    the z-split ``ShardedSumFactOperator`` (its halo is point-to-point),
+    each against its single-device apply; an operator whose collectives the
+    backend refuses records the error instead."""
+    from cmfem_tpu_torch.ops.sumfact_sharded import ShardedSumFactOperator
+    from cmfem_tpu_torch.parallel import (DofPartitionedOperator,
+                                          ShardedPoissonApply,
+                                          make_device_mesh)
+    from cmfem_tpu_torch.solvers import cg, jacobi_preconditioner
+
+    mesh = make_device_mesh(n_devices, device=device)
+    dev = mesh.device
+    n = 8
+    fes = FESpace(make_cartesian_mesh_3d(n, n, n), 2)
+    ops = SpaceOps(fes, quad_order=4, device=dev)
+    cform = cdr(BilinearForm(ops))
+    cdata = cform.assemble()
+    sform = BilinearForm(ops).add_mass(1.0).add_diffusion(0.1)
+    sdata = sform.assemble()
+    u = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        fes.nscalar), device=dev)
+    out = {"rank": mesh.rank, "device": str(dev)}
+
+    def check(name, fn):
+        try:
+            out[name] = fn()
+        except (RuntimeError, ValueError) as e:
+            out[name] = {"error": f"{type(e).__name__}: {e}"[:400]}
+
+    def sharded():
+        op = ShardedPoissonApply(ops, cdata, mesh)
+        return {"max_rel_err": rel_err(op(u), cform.apply(cdata, u))}
+
+    def dofpart():
+        op = DofPartitionedOperator(ops, sdata, mesh)
+        y = op.from_dist(op(op.to_dist(u)))
+        diag = sform.assemble_diagonal(sdata)
+        ref = cg(lambda v: sform.apply(sdata, v), u,
+                 M=jacobi_preconditioner(diag), rtol=1e-10, maxiter=500)
+        dinv = op.to_dist(1.0 / diag)
+        res = cg(op, op.to_dist(u), M=lambda r: dinv * r, rtol=1e-10,
+                 maxiter=500, dot=op.dot, norm=op.norm)
+        return {"max_rel_err": rel_err(y, sform.apply(sdata, u)),
+                "cg_iters": res.iters, "single_device_iters": ref.iters,
+                "x_rel": rel2(op.from_dist(res.x), ref.x)}
+
+    def zsplit():
+        op = ShardedSumFactOperator(ops, cdata, n, n, n, 2, mesh,
+                                    dtype=torch.float64)
+        fn, D = op.base.bind()
+        return {"max_rel_err": rel_err(op.from_sharded(op(op.to_sharded(u))),
+                                       fn(u, D))}
+
+    if p2p_only:
+        check("ShardedSumFactOperator", zsplit)
+    else:
+        check("ShardedPoissonApply", sharded)
+        check("DofPartitionedOperator", dofpart)
+    return out
+
+
+def run_gloo_on_card(device, world=2, timeout=120):
+    """Phase 14c: the halo code on CUDA tensors: ``world`` gloo ranks on
+    the one card (NCCL takes one rank per card), each operator against its
+    single-device apply (1e-12 of max|y|; CG iteration counts equal, x to
+    1e-8).  An operator that gloo refuses on CUDA tensors is named with
+    gloo's error (for a rank that dies in the exchange, the last lines of
+    its stderr)."""
+    from cmfem_tpu_torch.parallel import spawn_ranks
+
+    kind = torch.device(device).type
+
+    def spawn(p2p_only):
+        try:
+            return spawn_ranks(dist_small_rank, world, (world, kind,
+                                                        p2p_only),
+                               device=device, backend="gloo",
+                               timeout=timeout)
+        except RuntimeError as e:  # a rank died: its stderr's last lines
+            if not p2p_only:
+                raise
+            return [{"ShardedSumFactOperator": {"error": str(e)[-600:]}}] \
+                * world
+
+    # the collective operators and the point-to-point one in two worlds at
+    # once: a rank that gloo kills in the exchange takes only its own world
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        collective, p2p = pool.map(spawn, (False, True))
+    ranks = [{**a, **b} for a, b in zip(collective, p2p)]
+    rec = {}
+    for name in ("ShardedPoissonApply", "DofPartitionedOperator",
+                 "ShardedSumFactOperator"):
+        got = [r[name] for r in ranks]
+        errors = sorted({g["error"] for g in got if "error" in g})
+        if errors:
+            rec[name] = {"refused": errors}
+            log(f"phase 14c: {name}, {world} gloo ranks on CUDA tensors: "
+                f"refused: " + " | ".join(errors))
+            continue
+        err = max(g["max_rel_err"] for g in got)
+        rec[name] = {"max_rel_err": err}
+        extra = ""
+        if name == "DofPartitionedOperator":
+            rec[name].update({k: got[0][k] for k in
+                              ("cg_iters", "single_device_iters", "x_rel")})
+            extra = (f"; CG {got[0]['cg_iters']} iterations (single device "
+                     f"{got[0]['single_device_iters']}), x vs single device "
+                     f"{got[0]['x_rel']:.3e}")
+            assert all(g["cg_iters"] == g["single_device_iters"]
+                       and g["x_rel"] <= 1e-8 for g in got), got
+        log(f"phase 14c: {name}, {world} gloo ranks on "
+            f"{ranks[0]['device']}: max rel err vs single device {err:.3e} "
+            f"(tol 1e-12){extra}")
+        assert err <= 1e-12, (name, err)
+    return rec
 
 
 def ablation_residual_in_turns(device, r):
@@ -1590,7 +2126,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    kmods = (ksum, kbtdb, kz)
+    kmods = (ksum, kbtdb, kz, klmg)
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kmods)) as pool:
         list(pool.map(lambda kmod: kmod.build(), kmods))
@@ -1611,8 +2147,8 @@ def main():
     tiled = kbtdb.tiled_kernel_resources()
     tiled_geo = {f"{'float' if size == 4 else 'double'} nd={nd}": (
         geo.E, geo.THREADS, geo.STAGES, kbtdb.tiled_blocks_per_sm(nd, size))
-        for size in (4, 8) for _, nd, nq in kbtdb.TILED_SHAPES
-        for geo in [kbtdb.tile_geometry(nd, nq, size)]}
+        for size in (4, 8) for nd in kbtdb.TILED_ND
+        for geo in [kbtdb.tile_geometry(nd, nd, size)]}
     log(f"phase 1: btdb_tiled_kernel (registers, spill bytes stored + "
         f"loaded): {tiled}; (elements per block, threads, ring stages, "
         f"resident blocks per SM): {tiled_geo}")
@@ -1675,72 +2211,82 @@ def main():
                         assert ok, (n, order, dtype, name, periodic, err_t,
                                     err_z)
 
-    # -- 3. B^T D B kernel against its plain version ---------------------------
-    for dim, mesh in ((3, make_cartesian_mesh_3d(3, 4, 5)),
-                      (2, make_cartesian_mesh_2d(7, 5))):
+    # -- 3. B^T D B kernel against its plain version, every shape of
+    # KERNEL_SHAPES, from operators on triangles, quads, tets and hexes ------
+    b1_shapes = {}
+    for geom, dim, mesh in (
+            ("hex", 3, make_cartesian_mesh_3d(3, 4, 5)),
+            ("quad", 2, make_cartesian_mesh_2d(7, 5)),
+            ("triangle", 2, make_cartesian_mesh_2d(7, 5, geom="triangle")),
+            ("tet", 3, tet_mesh(2))):
         for order in (1, 2, 3, 4):
-            ops = space_ops(mesh, order, dev)
-            data = vc(BilinearForm(ops), dim).assemble()
-            for dtype in (torch.float64, F32):
-                pa = PAOperator(ops, data, dtype=dtype)
-                assert pa.path == "cuda-btdb", pa.path
-                nd = pa.BG.shape[1]
-                u_eT = torch.as_tensor(gen.standard_normal(
-                    (nd, pa.Dflat.shape[2])), dtype=dtype, device=dev)
-                before = kbtdb.launches
-                err, _ = compare(lambda v: kbtdb.btdb_apply(
-                                     pa.BG, v, pa.Dflat, pa.BG_stream),
-                                 lambda v: kbtdb.btdb_plain(pa.BG, v,
-                                                            pa.Dflat), u_eT)
-                assert kbtdb.launches == before + 1
-                ok = err <= TOL[dtype]
-                log(f"phase 3: {'hex' if dim == 3 else 'quad'} p={order} "
-                    f"(m={pa.m}, nd={nd}, nq={pa.nq}) {str(dtype)[6:]}: "
-                    f"max|k-p|/max|p| = {err:.3e} (tol {TOL[dtype]:.0e}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                assert ok, (dim, order, dtype, err)
-
-    # elements the kernel has no instantiation for: refused at construction
-    # on the card, as btdb_apply refuses them; the plain version, asked for
-    # by name, against BilinearForm.apply
-    tri = make_cartesian_mesh_2d(7, 5, geom="triangle")
-    for mesh, dim, order, quad_order in (
-            (tri, 2, 1, 2), (tri, 2, 2, 4), (tri, 2, 3, 6),
-            (make_cartesian_mesh_3d(3, 4, 5), 3, 2, 7),
-            (make_cartesian_mesh_3d(3, 4, 5), 3, 4, 11)):
-        ops = SpaceOps(FESpace(mesh, order), quad_order=quad_order,
-                       device=dev)
-        form = vc(BilinearForm(ops), dim)
-        data = form.assemble()
-        u64 = torch.as_tensor(gen.standard_normal(ops.fes.nscalar),
-                              device=dev)
-        y_ref = form.apply(data, u64)
-        for dtype in (torch.float64, F32):
-            try:
-                PAOperator(ops, data, dtype=dtype)
-                raise AssertionError("PAOperator took a shape the kernel "
-                                     "has no instantiation for")
-            except ValueError as e:
-                refusal = str(e)
-            assert "not one of" in refusal, refusal
-            pa = PAOperator(ops, data, dtype=dtype, use_kernel=False)
-            before = kbtdb.launches
-            err = rel_err(pa(u64.to(dtype)).double(), y_ref)
-            ok = (err <= TOL[dtype] and pa.path == "plain-btdb"
-                  and pa.BG_stream is None and kbtdb.launches == before)
-            log(f"phase 3: {mesh.geom} p={order} (m={pa.m}, "
-                f"nd={pa.BG.shape[1]}, nq={pa.nq}) {str(dtype)[6:]}: refused "
-                f"at construction; use_kernel=False -> {pa.path}, "
-                f"max|y - apply|/max|y| = {err:.3e} (tol "
-                f"{TOL[dtype]:.0e}), B1 launches moved "
-                f"{kbtdb.launches - before} {'ok' if ok else 'FAIL'}")
-            assert ok, (mesh.geom, order, dtype, err, pa.path)
-    log(f"phase 3: the refusal: {refusal}")
-    try:  # the wrapper itself refuses such a shape on the card too
-        kbtdb.btdb_apply(pa.BG, u64.to(F32)[pa.eldofs_T], pa.Dflat)
+            # q1 = p + 1, p + 2 and 3 points per axis
+            for quad_order in (2 * order, 2 * order + 2, 4):
+                ops = SpaceOps(FESpace(mesh, order), quad_order=quad_order,
+                               device=dev)
+                shape = (dim + 1, ops.B.shape[1], ops.B.shape[0])
+                if shape in b1_shapes:
+                    continue
+                form = vc(BilinearForm(ops), dim)
+                data = form.assemble()
+                u64 = torch.as_tensor(gen.standard_normal(ops.fes.nscalar),
+                                      device=dev)
+                y_ref = form.apply(data, u64)
+                errs = []
+                for dtype in (torch.float64, F32):
+                    pa = PAOperator(ops, data, dtype=dtype)
+                    assert pa.path == "cuda-btdb", pa.path
+                    u_eT = torch.as_tensor(gen.standard_normal(
+                        pa.eldofs_T.shape), dtype=dtype, device=dev)
+                    before = kbtdb.launches
+                    err, _ = compare(lambda v: kbtdb.btdb_apply(
+                                         pa.BG, v, pa.Dflat, pa.BG_stream),
+                                     lambda v: kbtdb.btdb_plain(pa.BG, v,
+                                                                pa.Dflat),
+                                     u_eT)
+                    err_op = rel_err(pa(u64.to(dtype)).double(), y_ref)
+                    assert kbtdb.launches == before + 2
+                    # the plain version, asked for by name, moves no count
+                    pp = PAOperator(ops, data, dtype=dtype, use_kernel=False)
+                    err_pp = rel_err(pp(u64.to(dtype)).double(), y_ref)
+                    assert pp.path == "plain-btdb" and pp.BG_stream is None
+                    assert kbtdb.launches == before + 2
+                    ok = max(err, err_op, err_pp) <= TOL[dtype]
+                    log(f"phase 3: {geom} p={order} q={quad_order} "
+                        f"(m, nd, nq) = {shape} {str(dtype)[6:]}: "
+                        f"max|k-p|/max|p| = {err:.3e}, PA apply vs "
+                        f"BilinearForm.apply {err_op:.3e} (use_kernel=False "
+                        f"{err_pp:.3e}; tol {TOL[dtype]:.0e}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    assert ok, (geom, order, quad_order, dtype, err, err_op,
+                                err_pp)
+                    errs.append(err)
+                b1_shapes[shape] = {"geom": geom, "order": order,
+                                    "quad_order": quad_order,
+                                    "max_rel_err_f64_f32": errs}
+    assert set(b1_shapes) == set(kbtdb.KERNEL_SHAPES), \
+        set(kbtdb.KERNEL_SHAPES) ^ set(b1_shapes)
+    # the lattice operator at a rule with p + 2 points per axis
+    ops = SpaceOps(FESpace(make_cartesian_mesh_3d(3, 4, 5), 2), quad_order=7,
+                   device=dev)
+    spa = StructuredPAOperator(ops, BilinearForm(ops).add_mass(1.0)
+                               .assemble(), StructuredGrid3D(3, 4, 5, 2))
+    assert spa.path == "cuda-btdb" and spa.BG_stream is not None
+    try:  # a shape outside the set (an order-5 quad) is refused
+        kbtdb.btdb_apply(*(torch.zeros(s, device=dev) for s in
+                           ((3 * 36, 36), (36, 5), (9, 36, 5))))
         raise AssertionError("btdb_apply took a shape it has no kernel for")
     except ValueError as e:
-        assert str(e) == refusal, (str(e), refusal)
+        refusal = str(e)
+    assert "(3, 36, 36) is not one of" in refusal, refusal
+    log(f"phase 3: {len(b1_shapes)} shapes through the kernel; "
+        f"StructuredPAOperator at q1 = p + 2 -> {spa.path}; outside the "
+        f"set: {refusal[:60]}...")
+    del spa, ops
+
+    # the shapes added in this slice timed alone at 110,592 elements
+    # (the 48^3 element count), float32, kernel and plain version
+    b1_new = time_new_btdb_shapes(dev, 110_592)
 
     # -- 4. slice 1's main path -----------------------------------------------
     (step, (u0, D)), setup_s = timed(lambda: entry(n=48, order=2, dtype=F32))
@@ -2194,29 +2740,53 @@ def main():
     t13 = time.perf_counter() - t13
     log(f"phase 13: {t13:.1f} s (budget 40 s)")
 
+    # -- 14. slice 11: line multigrid and the distributed operator layer ----
+    t14 = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        linemg = [{**rec, "card": smi} for rec in run_linemg(
+            dev, tmp, pointblock_iters=ablation[2]["krylov_iters"])]
+        t14a = time.perf_counter() - t14
+        distributed = {**run_distributed(dev, tmp), "card": smi}
+    t14b = time.perf_counter() - t14 - t14a
+    gloo_on_card = run_gloo_on_card(dev)
+    # only the line-MG kernels (14a) run here
+    assert {k for k, v in counts().items() if v} <= {
+        "line_factor", "line_solve"}, counts()
+    t14 = time.perf_counter() - t14
+    log(f"phase 14: {t14:.1f} s (budget 40 s): 14a {t14a:.1f} s, 14b "
+        f"{t14b:.1f} s, 14c {t14 - t14a - t14b:.1f} s")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": min(k), "plain_ms": min(p),
                 "bound_ms": bnd[0], "bound_by": bnd[1],
-                # no one PyTorch call computes any of these functions: each
-                # has a pointwise D stage between two contractions
+                # no one PyTorch call computes any of these functions: B1-B4
+                # have a pointwise D stage between two contractions, and
+                # torch has no block-tridiagonal elimination
                 "library_ms": None, **extra}
 
     log("phase 8b: sweep median apply ms " + json.dumps(
         {f"p{o} {n}": v for (o, n), v in sweep.items()}))
     b4_2 = b4[2, False]
+    lm = linemg[1]["kernels"]
+    lm_err = {k: max(rec["kernels"]["max_abs_err"][k] for rec in linemg)
+              for k in ("factor_and_solve", "solve")}
     log(json.dumps({"drivers": drivers}))
     log(json.dumps({"nonlinear_drivers": nonlinear}))
     log(json.dumps({"ablation_case1": ablation}))
     log(json.dumps({"ablation_case2_1": ablation21}))
     log(json.dumps({"ablation_case2_2": ablation22}))
+    log(json.dumps({"linemg": linemg, "distributed": distributed,
+                    "gloo_on_card": gloo_on_card}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,
                by_order=by_order["B1"], pa_steps=pa_steps,
-               pa_apply_alone=pa_alone),
+               pa_apply_alone=pa_alone, by_shape=b1_new,
+               shapes_checked=len(b1_shapes)),
         record("sumfact_fused", "sumfact_fused.cu",
                "cmfem_tpu/ops/sumfact.py:563", b2_launches, b2_abs, b2_k,
                b2_p, b2_bound, call_ms=b2_call,
@@ -2227,6 +2797,15 @@ def main():
                b3_p, b3_bound, call_ms=b3_call,
                earlier_ms=by_order["B3"]["p2"]["earlier_ms"],
                max_abs_err_f64_mg_n48=mg_abs, by_order=by_order["B3"]),
+        *[record(name, "linemg.cu",
+                 f"cmfem_tpu/solvers/linemg.py:{line} (an XLA lax.scan; "
+                 f"no Pallas kernel)",
+                 sum(rec["linemg"]["launches"][name] for rec in linemg),
+                 lm_err[key], [lm[name]["ms"]], [lm[name]["plain_ms"]],
+                 lm[name]["bound"], levels=lm["levels"], NY=lm["NY"],
+                 NX=lm["NX"])
+          for name, line, key in (("line_factor", 157, "factor_and_solve"),
+                                  ("line_solve", 192, "solve"))],
         record("sumfact_zchain", "sumfact_zchain.cu",
                "cmfem_tpu/ops/sumfact.py:768", b4_launches,
                b4_2["max_abs_err"], [b4_2["ms"]], [b4_2["plain_ms"]],

@@ -255,11 +255,10 @@ class Case1:
         return AblationState.initial(self.sys.ne, self.sys.nq, self.mat,
                                      device=self.device, dtype=self.dtype)
 
-    def host_lu(self, blocks, face=None):
-        """scipy ``splu`` of the BC-eliminated 2n x 2n Jacobian assembled
-        from the element blocks (and the boundary-face blocks of the T
-        rows, ``face=(FJT, FJp)``) copied to the host (the reference's MUMPS
-        LU analog); ``.solve(rhs)`` takes and returns device tensors."""
+    def host_matrix(self, blocks, face=None):
+        """The BC-eliminated 2n x 2n Jacobian (scipy CSR on the host)
+        assembled from the element blocks and the boundary-face blocks of
+        the T rows (``face=(FJT, FJp)``)."""
         n = self.n
         if not hasattr(self, "_rows_cols"):
             # static sparsity structure of the 2x2 block Jacobian and of the
@@ -285,7 +284,12 @@ class Case1:
                           shape=(2 * n, 2 * n)).tocsr()
         # essential elimination: identity rows/cols
         d = sp.diags((~self.mask2).astype(np.float64))
-        J = d @ J @ d + sp.diags(self.mask2.astype(np.float64))
+        return d @ J @ d + sp.diags(self.mask2.astype(np.float64))
+
+    def host_lu(self, blocks, face=None):
+        """scipy ``splu`` of ``host_matrix`` (the reference's MUMPS LU
+        analog); ``.solve(rhs)`` takes and returns device tensors."""
+        J = self.host_matrix(blocks, face)
         lu = spla.splu(J.tocsc())
 
         class _LU:

@@ -14,17 +14,26 @@
 // with BG, in true float32 (FFMA) or float64: no tensor cores, no sum
 // factorization, all M*M planes of D read, zeros included.
 //
-// Two designs.
+// Two designs, between them every (M, ND, NQ) that the JAX package's
+// spaces produce at orders 1-4 (kernels/btdb.py::KERNEL_SHAPES: triangles,
+// quads, tets and hexes under the quadrature orders its forms and drivers
+// use, 2p to 2p + 3 and 4; its spaces have no segments).  ND and M are
+// template parameters, NQ a runtime loop bound: a rule with more points
+// costs no instantiation of its own and no build time.
 //
-// (1) btdb_kernel: hexes at order 1 and quads at orders 1-4 (ND <= 25), one
+// (1) btdb_kernel: every shape but hexes at orders 2-4 (ND <= 35), one
 // thread per element.  The element is the minor axis of u_eT, Dflat and
 // y_eT, so a warp's loads and stores of them are coalesced.  Each thread
 // keeps u_e (ND values) and its y_e accumulator in registers and streams
-// over the quadrature points; BG is staged once per block in shared memory
-// and every thread of a warp reads the same entry (a broadcast).  The D read
-// bounds these small shapes; one shared load per FMA comes next.
+// over the quadrature points; BG is staged in shared memory in chunks of
+// quadrature points (all of them where M*NQ*ND entries fit in 48 KB, as for
+// the quads and hexes at q1 = p + 1; a tet at order 4 under 216 points
+// takes 6 chunks in float64) and every thread of a warp reads the same
+// entry (a broadcast).  The D read bounds these small shapes; one shared
+// load per FMA comes next.
 //
-// (2) btdb_tiled_kernel: hexes at orders 2-4 (ND = NQ = 27, 64, 125).  From
+// (2) btdb_tiled_kernel: hexes at orders 2-4 (ND = 27, 64, 125; NQ = ND at
+// q1 = p + 1, the shapes timed below, and the other rules' 27 to 216).  From
 // order 3 on one element's 2 ND values no longer fit a thread's registers.
 // What bounds it at 48^3 (ne = 110,592) in float32, at the H100's 3.35 TB/s
 // and 67 TFLOP/s: at order 2 the bytes, 0.064 ms (215 MB; 1.4 GFLOP, 6.4
@@ -82,73 +91,87 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int CHUNK_BYTES = 48 * 1024;  // BG's chunk: no opt-in needed
 
-template <typename T, int M, int ND, int NQ>
+template <typename T, int M, int ND>
 __global__ void __launch_bounds__(THREADS)
 btdb_kernel(const T* __restrict__ BG, const T* __restrict__ u,
-            const T* __restrict__ D, T* __restrict__ y, long long ne) {
+            const T* __restrict__ D, T* __restrict__ y, long long ne, int nq,
+            int qc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sBG = reinterpret_cast<T*>(smem_raw);  // (M*NQ, ND), row-major
-  for (int t = threadIdx.x; t < M * NQ * ND; t += blockDim.x) sBG[t] = BG[t];
-  __syncthreads();
-
+  // (M, qc, ND): row s*qc + j holds BG row s*nq + q0 + j of the chunk
+  T* sBG = reinterpret_cast<T*>(smem_raw);
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= ne) return;  // no barrier below
+  const bool live = e < ne;  // every thread stays for the barriers
 
   T ue[ND];
   T ye[ND];
 #pragma unroll
   for (int a = 0; a < ND; ++a) {
-    ue[a] = u[(long long)a * ne + e];
+    ue[a] = live ? u[(long long)a * ne + e] : T(0);
     ye[a] = T(0);
   }
 
 #pragma unroll 1
-  for (int q = 0; q < NQ; ++q) {
-    T U[M];
-#pragma unroll
-    for (int s = 0; s < M; ++s) {
-      const T* row = sBG + (s * NQ + q) * ND;
-      T acc = T(0);
-#pragma unroll
-      for (int a = 0; a < ND; ++a) acc += row[a] * ue[a];
-      U[s] = acc;
+  for (int q0 = 0; q0 < nq; q0 += qc) {
+    const int nc = min(qc, nq - q0);
+    __syncthreads();  // the last chunk's readers are done
+    for (int t = threadIdx.x; t < M * nc * ND; t += THREADS) {
+      const int s = t / (nc * ND), r = t - s * nc * ND;
+      sBG[s * qc * ND + r] = BG[(long long)(s * nq + q0) * ND + r];
     }
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll 1
+    for (int j = 0; j < nc; ++j) {
+      const int q = q0 + j;
+      T U[M];
 #pragma unroll
-    for (int r = 0; r < M; ++r) {
-      T v = T(0);
+      for (int s = 0; s < M; ++s) {
+        const T* row = sBG + (s * qc + j) * ND;
+        T acc = T(0);
 #pragma unroll
-      for (int s = 0; s < M; ++s)
-        v += D[((long long)(r * M + s) * NQ + q) * ne + e] * U[s];
-      const T* row = sBG + (r * NQ + q) * ND;
+        for (int a = 0; a < ND; ++a) acc += row[a] * ue[a];
+        U[s] = acc;
+      }
 #pragma unroll
-      for (int a = 0; a < ND; ++a) ye[a] += row[a] * v;
+      for (int r = 0; r < M; ++r) {
+        T v = T(0);
+#pragma unroll
+        for (int s = 0; s < M; ++s)
+          v += D[((long long)(r * M + s) * nq + q) * ne + e] * U[s];
+        const T* row = sBG + (r * qc + j) * ND;
+#pragma unroll
+        for (int a = 0; a < ND; ++a) ye[a] += row[a] * v;
+      }
     }
   }
 
+  if (!live) return;
 #pragma unroll
   for (int a = 0; a < ND; ++a) y[(long long)a * ne + e] = ye[a];
 }
 
-template <typename T, int M, int ND, int NQ>
-int launch(const T* BG, const T* u, const T* D, T* y, long long ne,
+template <typename T, int M, int ND>
+int launch(const T* BG, const T* u, const T* D, T* y, long long ne, int nq,
            cudaStream_t stream) {
-  constexpr size_t smem = sizeof(T) * M * NQ * ND;
-  static_assert(smem <= 48 * 1024, "BG fits without an opt-in");
+  const int per_q = (int)sizeof(T) * M * ND;  // bytes of one point's rows
+  const int qc = min(nq, CHUNK_BYTES / per_q);
+  if (nq < 1 || qc < 1) return (int)cudaErrorInvalidValue;
   if (ne == 0) return (int)cudaGetLastError();
   const long long blocks = (ne + THREADS - 1) / THREADS;
-  btdb_kernel<T, M, ND, NQ><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      BG, u, D, y, ne);
+  btdb_kernel<T, M, ND><<<(unsigned)blocks, THREADS, (size_t)qc * per_q,
+                          stream>>>(BG, u, D, y, ne, nq, qc);
   return (int)cudaGetLastError();
 }
 
 // The tiled design for hexes at orders 2-4 (see the note at the top).
 constexpr int SMEM_MAX = 232448;  // bytes a block may use (227 KB)
 
-template <typename T, int ND_, int NQ_>
+template <typename T, int ND_>
 struct Tile {
   static constexpr int M = 4;                  // hexes
-  static constexpr int ND = ND_, NQ = NQ_;
+  static constexpr int ND = ND_;
   static constexpr int NDP = (ND + 31) / 32 * 32;  // padded DOF count
   static constexpr int TE = 4, TA = 8, TQ = 2; // a thread's tile
   static constexpr int KC = 16;                // rows of a stream tile
@@ -168,9 +191,14 @@ struct Tile {
   static constexpr int EG = E / TE;            // element groups
   static constexpr int THREADS = EG * AG;
   static constexpr int QC = TQ * AG;           // quadrature points a slab
-  static constexpr int NSLAB = (NQ + QC - 1) / QC;
   static constexpr int HALF = NDP / KC;        // tiles of one product
-  static constexpr int NT = NSLAB * 2 * HALF;  // tiles in the stream
+  // slabs and tiles in the stream of a rule with nq points
+  __host__ __device__ static constexpr int nslab(int nq) {
+    return (nq + QC - 1) / QC;
+  }
+  __host__ __device__ static constexpr int tiles(int nq) {
+    return nslab(nq) * 2 * HALF;
+  }
   static constexpr int TILE = KC * NDP;        // entries of a tile
   static constexpr int pick_stages() {         // tiles in the ring
     const int room = SMEM_MAX / BLOCKS - 1024
@@ -270,8 +298,9 @@ __device__ __forceinline__ void fma_tile(T (&acc)[TA][TE], const T (&b)[TA],
 template <typename T, class S, bool WIDE>
 __global__ void __launch_bounds__(S::THREADS, S::MINB)
 btdb_tiled_kernel(const T* __restrict__ bgs, const T* __restrict__ u,
-                  const T* __restrict__ D, T* __restrict__ y, long long ne) {
-  constexpr int M = S::M, ND = S::ND, NQ = S::NQ, E = S::E, NS = S::NS;
+                  const T* __restrict__ D, T* __restrict__ y, long long ne,
+                  int nq) {
+  constexpr int M = S::M, ND = S::ND, E = S::E, NS = S::NS;
   constexpr int NDP = S::NDP, TE = S::TE, TA = S::TA, TQ = S::TQ;
   constexpr int KC = S::KC, EG = S::EG, QC = S::QC, HALF = S::HALF;
   constexpr int TILE = S::TILE, VEC = S::VEC;
@@ -284,13 +313,14 @@ btdb_tiled_kernel(const T* __restrict__ bgs, const T* __restrict__ u,
   const int eg = (warp % (EG / 8)) * 8 + (lane & 7);  // elements 4 eg + c
   const int g = (warp / (EG / 8)) * 4 + (lane >> 3);  // rows 8 g + i
   const long long e0 = (long long)blockIdx.x * E;
+  const int NQ = nq, NT = S::tiles(nq), NSLAB = S::nslab(nq);
   // elements from this thread's first on, as far as it matters
   const int left = (int)max(0LL, min((long long)TE, ne - (e0 + TE * eg)));
 
   // tile t of the stream into slot t % NS; always one group, also when the
   // stream has ended, so that wait_group counts the same everywhere
   auto fetch = [&](int t, int slot) {
-    if (t < S::NT) {
+    if (t < NT) {
       const T* src = bgs + (size_t)t * TILE;
       T* dst = ring + slot * TILE;
 #pragma unroll
@@ -354,7 +384,7 @@ btdb_tiled_kernel(const T* __restrict__ bgs, const T* __restrict__ u,
   };
 
 #pragma unroll 1
-  for (int slab = 0; slab < S::NSLAB; ++slab) {
+  for (int slab = 0; slab < NSLAB; ++slab) {
     // product 1: U[8 g + i][e] = sum_k BG[row(8 g + i)][k] u[k][e], row
     // 8 g + i of the slab being (q, s) = (slab QC + 2 g + i / 4, i % 4)
     T acc[TA][TE];
@@ -469,12 +499,13 @@ cudaError_t opt_in() {
   return err;
 }
 
-template <typename T, int ND, int NQ>
+template <typename T, int ND>
 int launch_tiled(const T* bgs, const T* u, const T* D, T* y, long long ne,
-                 Geometry geo, cudaStream_t stream) {
-  using S = Tile<T, ND, NQ>;
-  if (geo.e != S::E || geo.ndp != S::NDP || geo.threads != S::THREADS ||
-      geo.stages != S::NS || geo.tiles != S::NT)
+                 int nq, Geometry geo, cudaStream_t stream) {
+  using S = Tile<T, ND>;
+  if (nq < 1 || geo.e != S::E || geo.ndp != S::NDP ||
+      geo.threads != S::THREADS || geo.stages != S::NS ||
+      geo.tiles != S::tiles(nq))
     return (int)cudaErrorInvalidValue;
   const bool wide = ne % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(D) |
@@ -485,13 +516,14 @@ int launch_tiled(const T* bgs, const T* u, const T* D, T* y, long long ne,
   if (err != cudaSuccess) return (int)err;
   if (ne == 0) return (int)cudaGetLastError();
   const long long blocks = (ne + S::E - 1) / S::E;
-  kernel<<<(unsigned)blocks, S::THREADS, S::SMEM, stream>>>(bgs, u, D, y, ne);
+  kernel<<<(unsigned)blocks, S::THREADS, S::SMEM, stream>>>(bgs, u, D, y, ne,
+                                                        nq);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int ND, int NQ>
+template <typename T, int ND>
 int occupancy_tiled() {
-  using S = Tile<T, ND, NQ>;
+  using S = Tile<T, ND>;
   auto kernel = btdb_tiled_kernel<T, S, true>;
   cudaError_t err = opt_in<T, S, true>();
   int blocks = 0;
@@ -509,18 +541,29 @@ int dispatch(const void* BG, const void* u, const void* D, void* y, int m,
   const T* d = static_cast<const T*>(D);
   T* y_ = static_cast<T*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // hexes (M = 4) and quads (M = 3) at orders 1-4 with q1 = p + 1; hexes
-  // at orders 2-4 take the tiled design, with BG as its tile stream
-  if (m == 4 && nd == 27 && nq == 27) return launch_tiled<T, 27, 27>(b, u_, d, y_, ne, geo, s);
-  if (m == 4 && nd == 64 && nq == 64) return launch_tiled<T, 64, 64>(b, u_, d, y_, ne, geo, s);
-  if (m == 4 && nd == 125 && nq == 125) return launch_tiled<T, 125, 125>(b, u_, d, y_, ne, geo, s);
+  // hexes at orders 2-4 take the tiled design, with BG as its tile stream;
+  // the rest one thread per element: triangles, quads (M = 3), tets and
+  // hexes at order 1 (M = 4), at any nq
+  if (m == 4 && nd == 27) return launch_tiled<T, 27>(b, u_, d, y_, ne, nq, geo, s);
+  if (m == 4 && nd == 64) return launch_tiled<T, 64>(b, u_, d, y_, ne, nq, geo, s);
+  if (m == 4 && nd == 125) return launch_tiled<T, 125>(b, u_, d, y_, ne, nq, geo, s);
   if (geo.e != 0) return (int)cudaErrorInvalidValue;
-  if (m == 4 && nd == 8 && nq == 8) return launch<T, 4, 8, 8>(b, u_, d, y_, ne, s);
-  if (m == 3 && nd == 4 && nq == 4) return launch<T, 3, 4, 4>(b, u_, d, y_, ne, s);
-  if (m == 3 && nd == 9 && nq == 9) return launch<T, 3, 9, 9>(b, u_, d, y_, ne, s);
-  if (m == 3 && nd == 16 && nq == 16) return launch<T, 3, 16, 16>(b, u_, d, y_, ne, s);
-  if (m == 3 && nd == 25 && nq == 25) return launch<T, 3, 25, 25>(b, u_, d, y_, ne, s);
-  return (int)cudaErrorInvalidValue;
+  switch (m * 1000 + nd) {
+    case 3003: return launch<T, 3, 3>(b, u_, d, y_, ne, nq, s);    // tri p1
+    case 3006: return launch<T, 3, 6>(b, u_, d, y_, ne, nq, s);    // tri p2
+    case 3010: return launch<T, 3, 10>(b, u_, d, y_, ne, nq, s);   // tri p3
+    case 3015: return launch<T, 3, 15>(b, u_, d, y_, ne, nq, s);   // tri p4
+    case 3004: return launch<T, 3, 4>(b, u_, d, y_, ne, nq, s);    // quad p1
+    case 3009: return launch<T, 3, 9>(b, u_, d, y_, ne, nq, s);    // quad p2
+    case 3016: return launch<T, 3, 16>(b, u_, d, y_, ne, nq, s);   // quad p3
+    case 3025: return launch<T, 3, 25>(b, u_, d, y_, ne, nq, s);   // quad p4
+    case 4004: return launch<T, 4, 4>(b, u_, d, y_, ne, nq, s);    // tet p1
+    case 4010: return launch<T, 4, 10>(b, u_, d, y_, ne, nq, s);   // tet p2
+    case 4020: return launch<T, 4, 20>(b, u_, d, y_, ne, nq, s);   // tet p3
+    case 4035: return launch<T, 4, 35>(b, u_, d, y_, ne, nq, s);   // tet p4
+    case 4008: return launch<T, 4, 8>(b, u_, d, y_, ne, nq, s);    // hex p1
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -554,12 +597,12 @@ extern "C" int cmfem_btdb_apply_f64(const void* BG, const void* u,
 // float32 (itemsize 4) or float64 (8); 0 for another shape, minus the CUDA
 // error on failure.
 extern "C" int cmfem_btdb_tiled_blocks_per_sm(int nd, int itemsize) {
-  if (nd == 27) return itemsize == 4 ? occupancy_tiled<float, 27, 27>()
-                                     : occupancy_tiled<double, 27, 27>();
-  if (nd == 64) return itemsize == 4 ? occupancy_tiled<float, 64, 64>()
-                                     : occupancy_tiled<double, 64, 64>();
-  if (nd == 125) return itemsize == 4 ? occupancy_tiled<float, 125, 125>()
-                                      : occupancy_tiled<double, 125, 125>();
+  if (nd == 27) return itemsize == 4 ? occupancy_tiled<float, 27>()
+                                     : occupancy_tiled<double, 27>();
+  if (nd == 64) return itemsize == 4 ? occupancy_tiled<float, 64>()
+                                     : occupancy_tiled<double, 64>();
+  if (nd == 125) return itemsize == 4 ? occupancy_tiled<float, 125>()
+                                      : occupancy_tiled<double, 125>();
   return 0;
 }
 

@@ -34,11 +34,21 @@ apply of the same lattice-numbered vector (the timing lives in
 ``chip_smoke.py``).  ``entry`` and ``vc_entry`` run at orders 3 and 4
 unchanged; their steps go through the z-chain with
 ``step.solve(u0, *op.bind_zchain(...))``.
+
+The distributed operator layer, ``dryrun_multichip(n_devices)``: the
+counterpart of ``__graft_entry__.dryrun_multichip`` without its ablation
+sections (they come with the distributed ablation Newton): an implicit CDR
+step through ``ShardedPoissonApply`` and CG, a Jacobi-CG solve on
+``DofPartitionedOperator`` against the single-device PA solve, and the
+z-split sum-factorized apply against ``SumFactoredOperator``.  On the CPU
+it spawns ``n_devices`` gloo ranks; on the card one NCCL rank per card.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -333,3 +343,118 @@ def operator_paths(n: int = 48, order: int = 2, device=None,
 
     paths["pa"] = (pa_lattice, (Dflat, eldofs_T))
     return OperatorPaths(grid.ndofs, sf, spa, pa, lat, paths)
+
+
+# -- the distributed operator layer ------------------------------------------
+
+def _dryrun_problem(n, order, device, dtype):
+    """``__graft_entry__._build_problem``: the CDR step's forms on n^3 hexes
+    at ``order`` (quadrature 2p)."""
+    fes = FESpace(make_cartesian_mesh_3d(n, n, n), order)
+    ops = SpaceOps(fes, quad_order=2 * order, device=device, dtype=dtype)
+    lhs = (BilinearForm(ops).add_mass(1.0).add_convection(BETA, alpha=DT)
+           .add_diffusion(0.1 * DT))
+    ldata = lhs.assemble()
+    mdata = BilinearForm(ops).add_mass(1.0).assemble()
+    bc = EssentialBC(fes.nscalar, fes.boundary_dofs(), device=device)
+    return fes, ops, lhs, ldata, mdata, bc, lhs.assemble_diagonal(ldata)
+
+
+def dryrun_rank(n_devices: int, device: str) -> dict:
+    """One rank of ``dryrun_multichip``, in a world of ``n_devices`` ranks
+    (float32, 4^3 hexes at order 2, as the JAX package's dry run)."""
+    from .ops.sumfact_sharded import ShardedSumFactOperator
+    from .parallel import (DofPartitionedOperator, ShardedPoissonApply,
+                           make_device_mesh)
+
+    mesh = make_device_mesh(n_devices, device=device)
+    dev, f32 = mesh.device, torch.float32
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(dev)}
+
+    # the element-split implicit CDR step, CG as in the JAX dry run
+    fes, ops, _, ldata, mdata, bc, diag = _dryrun_problem(4, 2, dev, f32)
+    A_sh = ShardedPoissonApply(ops, ldata, mesh)
+    M_sh = ShardedPoissonApply(ops, mdata, mesh)
+    u0 = torch.zeros(fes.nscalar, dtype=f32, device=dev)
+    u0[fes.nscalar // 2] = 1.0
+    rhs = M_sh(u0)
+    B = bc.constrained_rhs(A_sh, rhs, torch.zeros_like(u0))
+    res = cg(bc.constrain_operator(A_sh), B, x0=u0,
+             M=jacobi_preconditioner(torch.where(bc.mask, 1.0, diag)),
+             rtol=1e-6, maxiter=50)
+    if not bool(torch.isfinite(res.x).all()):
+        raise RuntimeError("dryrun_multichip: the sharded step is not finite")
+    out.update(ndofs=fes.nscalar, step_norm=float(torch.linalg.vector_norm(
+        res.x)), step_iters=res.iters)
+
+    # the DOF-partitioned Jacobi-CG against the single-device PA solve
+    spd_form = BilinearForm(ops).add_mass(1.0).add_diffusion(0.1)
+    spd = spd_form.assemble()
+    ddiag = spd_form.assemble_diagonal(spd)
+    dop = DofPartitionedOperator(ops, spd, mesh)
+    if mesh.size > 1 and dop.per_device_floats() >= fes.nscalar:
+        raise RuntimeError("dryrun_multichip: the DOF-partitioned layout is "
+                           "not smaller than the global vector")
+    bd = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        fes.nscalar).astype(np.float32), device=dev)
+    dinv = dop.to_dist(1.0 / ddiag)
+    resd = cg(dop, dop.to_dist(bd), M=lambda r: dinv * r, rtol=1e-6,
+              maxiter=2000, dot=dop.dot, norm=dop.norm)
+    pa = PAOperator(ops, spd, dtype=f32)
+    ref = cg(pa, bd, M=lambda r: r / ddiag, rtol=1e-6, maxiter=2000)
+    xd = dop.from_dist(resd.x)
+    reld = float(torch.linalg.vector_norm(xd - ref.x)
+                 / torch.linalg.vector_norm(ref.x))
+    if not reld < 1e-3:
+        raise RuntimeError(f"dryrun_multichip: DOF-partitioned CG is "
+                           f"{reld:.3e} from the single-device solve")
+    out.update(dofpart_rel=reld, dofpart_iters=resd.iters,
+               single_iters=ref.iters, pa_path=pa.path,
+               per_device_floats=dop.per_device_floats())
+
+    # the z-split sum-factorized apply against the single-device one
+    nz = 2 * mesh.size
+    sops = SpaceOps(FESpace(make_cartesian_mesh_3d(4, 4, nz), 2),
+                    quad_order=4, device=dev)
+    sdata = (BilinearForm(sops).add_diffusion(0.1).add_convection(BETA)
+             .add_mass(1.0)).assemble()
+    zmesh = make_device_mesh(n_devices, axis="z", device=device)
+    shop = ShardedSumFactOperator(sops, sdata, 4, 4, nz, 2, zmesh)
+    refop = SumFactoredOperator(sops, sdata, 4, 4, nz, 2, device=dev)
+    uu = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        refop.ndofs).astype(np.float32), device=dev)
+    ys = shop.from_sharded(shop(shop.to_sharded(uu)))
+    yr = refop(uu)
+    err = float((ys - yr).abs().max() / (yr.abs().max() + 1e-30))
+    if not err < 1e-5:
+        raise RuntimeError(f"dryrun_multichip: z-split apply is {err:.3e} "
+                           "from the single-device apply")
+    out.update(sumfact_ndofs=refop.ndofs, sumfact_rel=err)
+    return out
+
+
+def dryrun_multichip(n_devices: int, device=None, timeout: float = 300.0):
+    """Run the distributed operator layer once on ``n_devices`` ranks and
+    return each rank's record (see ``dryrun_rank``).  ``device="cpu"``
+    spawns gloo ranks on the CPU; the default runs one NCCL rank per card
+    and raises when there are fewer cards than ranks or no card.  One rank
+    with no world yet runs in this process."""
+    import torch.distributed as dist
+
+    from .parallel import init_rank, spawn_ranks
+
+    device = _device(device)
+    if device.type == "cuda" and torch.cuda.device_count() < n_devices:
+        raise RuntimeError(f"dryrun_multichip needs >= {n_devices} cards "
+                           f"but {torch.cuda.device_count()} exist")
+    kind = device.type
+    if n_devices == 1 and not dist.is_initialized():
+        with tempfile.TemporaryDirectory(prefix="cmfem_ranks_") as tmp:
+            init_rank(0, 1, os.path.join(tmp, "store"), device=device,
+                      timeout=timeout)
+            try:
+                return [dryrun_rank(1, str(device))]
+            finally:
+                dist.destroy_process_group()
+    return spawn_ranks(dryrun_rank, n_devices, (n_devices, kind),
+                       device=kind, timeout=timeout)

@@ -8,7 +8,9 @@ Pallas kernel); on a CPU tensor it runs ``btdb_plain``, the plain PyTorch
 version (a port of ``_xla_btdb``).  There is no fallback from one to the
 other.
 
-Hexes at orders 2-4 take the kernel's tiled design: a block of
+The kernel takes every element shape (m, nd, nq) that the JAX package's
+spaces produce at orders 1-4 (``KERNEL_SHAPES``).  Hexes at orders 2-4 take
+its tiled design: a block of
 ``tile_geometry(...).E`` elements, both products register-tiled, BG read as
 a stream of (16, NDP) tiles that ``pack_bg`` lays out once per BG (the
 operators do it at construction and hand the stream to every apply).  The
@@ -28,12 +30,33 @@ import torch
 
 from .build import build_info, load_library, ptxas_resources
 
-# (m, nd, nq) the kernel is instantiated for: hexes (m = 4) and quads
-# (m = 3) at orders 1-4 with q1 = p + 1 Gauss points per axis
-KERNEL_SHAPES = ((4, 8, 8), (4, 27, 27), (4, 64, 64), (4, 125, 125),
-                 (3, 4, 4), (3, 9, 9), (3, 16, 16), (3, 25, 25))
-# the shapes of the tiled design: hexes at orders 2-4
-TILED_SHAPES = ((4, 27, 27), (4, 64, 64), (4, 125, 125))
+# (m, nd, nq) the kernel takes: every shape ``SpaceOps`` of the JAX package
+# produces for triangles and quads (m = 3), tets and hexes (m = 4) at orders
+# p = 1-4 under the quadrature orders its forms and drivers use (2p in
+# ``__graft_entry__``, bench.py and multigrid; the default 2p + 1; 2p + 2 in
+# the ablation drivers; 2p + 3 in ``linear_cd_transient``'s error space; 4
+# in the ablation and dry-run set-ups), that is q1 = p + 1, p + 2 or 3 Gauss
+# (conical-product) points per axis, nq = q1^dim.  Its spaces have no
+# segments (``FESpace`` has no boundary for them).  nq is a runtime bound
+# of the kernel; nd and m are compiled in (csrc/btdb.cu::dispatch).
+KERNEL_SHAPES = frozenset({
+    # triangles
+    (3, 3, 4), (3, 3, 9), (3, 6, 9), (3, 6, 16), (3, 10, 9), (3, 10, 16),
+    (3, 10, 25), (3, 15, 9), (3, 15, 25), (3, 15, 36),
+    # quads
+    (3, 4, 4), (3, 4, 9), (3, 9, 9), (3, 9, 16), (3, 16, 9), (3, 16, 16),
+    (3, 16, 25), (3, 25, 9), (3, 25, 25), (3, 25, 36),
+    # tets
+    (4, 4, 8), (4, 4, 27), (4, 10, 27), (4, 10, 64), (4, 20, 27),
+    (4, 20, 64), (4, 20, 125), (4, 35, 27), (4, 35, 125), (4, 35, 216),
+    # hexes
+    (4, 8, 8), (4, 8, 27), (4, 27, 27), (4, 27, 64), (4, 64, 27),
+    (4, 64, 64), (4, 64, 125), (4, 125, 27), (4, 125, 125), (4, 125, 216),
+})
+# the DOF counts of the tiled design: hexes at orders 2-4, at any nq
+TILED_ND = (27, 64, 125)
+TILED_SHAPES = frozenset(s for s in KERNEL_SHAPES
+                         if s[0] == 4 and s[1] in TILED_ND)
 SMEM_MAX = 232448  # bytes of shared memory a block may use on the H100
 LIB_NAME = "cmfem_btdb"
 SOURCES = ["btdb.cu"]
@@ -199,7 +222,7 @@ def require_kernel(device, dtype, m: int, nd: int, nq: int):
         raise TypeError(f"btdb_apply: dtype {dtype} not supported")
     if (m, nd, nq) not in KERNEL_SHAPES:
         raise ValueError(f"btdb_apply: (m, nd, nq) = ({m}, {nd}, {nq}) is "
-                         f"not one of {KERNEL_SHAPES}")
+                         f"not one of {sorted(KERNEL_SHAPES)}")
 
 
 def btdb_apply(BG, u_eT, Dflat, packed=None):

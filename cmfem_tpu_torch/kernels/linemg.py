@@ -1,0 +1,185 @@
+"""The y-line factorization and solve of the line multigrid: CUDA kernel
+wrappers + plain versions.
+
+``line_factor(SS)`` factors every x-column's block-tridiagonal y-line system
+of the canonical (3, 3, NY, NX, 2, 2) stencil by block-QR elimination and
+returns (R, C1, E, Q, Qf, Rf); ``line_solve(fac, r)`` solves the columns'
+systems for r (NY, NX, 2).  On CUDA tensors each launches a hand-written
+kernel of ``csrc/linemg.cu``, one thread per column; on CPU tensors they run
+``line_factor_plain`` and ``line_solve_plain``, ports of the JAX package's
+``cmfem_tpu/solvers/linemg.py::line_factor`` and ``line_solve``.  No TPU
+kernel stands behind them (the JAX package leaves the scans to XLA): the
+kernels exist because the plain versions' row loops are launch-bound on
+the card.  There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .build import load_library
+
+LIB_NAME = "cmfem_linemg"
+SOURCES = ["linemg.cu"]
+
+# Calls of the wrappers that launched a kernel.  Plain-version calls do not
+# count.
+launches_factor = 0
+launches_solve = 0
+
+
+def line_factor_plain(SS):
+    """Factor every x-column's block-tridiagonal (2x2 blocks over NY)
+    y-line system by orthogonal (QR) elimination, batched over columns.
+
+    The line operator is the ox = 0 slice: A_d = SS[1,1] (diagonal),
+    A_l = SS[0,1] (couples y-1), A_u = SS[2,1] (couples y+1).  As in
+    ``BlockTridiagDirect``, fill makes the upper factor block-pentadiagonal
+    (R upper triangular, C1 coupling y+1, E coupling y+2) and the level Q
+    factors transform the rhs at solve time; the column axis is a batch
+    dimension.  Returns (R, C1, E, Q, Qf, Rf)."""
+    A_l, A_d, A_u = SS[0, 1], SS[1, 1], SS[2, 1]   # (NY, NX, 2, 2)
+    NY, NX = A_d.shape[0], A_d.shape[1]
+    zm = torch.zeros((NX, 2, 2), dtype=A_d.dtype, device=A_d.device)
+    Rs, C1s, Es, Qs = [], [], [], []
+    Dc, Cc = A_d[0], A_u[0]
+    for y in range(1, NY):
+        M = torch.cat([Dc, A_l[y]], dim=-2)                 # (NX, 4, 2)
+        Q, R = torch.linalg.qr(M, mode="complete")          # Q (NX, 4, 4)
+        top = torch.cat([Cc, zm], dim=-1)                   # (NX, 2, 4)
+        bot = torch.cat([A_d[y], A_u[y]], dim=-1)
+        right = Q.transpose(-1, -2) @ torch.cat([top, bot], dim=-2)
+        Rs.append(R[:, :2])
+        C1s.append(right[:, :2, :2])
+        Es.append(right[:, :2, 2:])
+        Qs.append(Q)
+        Dc, Cc = right[:, 2:, :2], right[:, 2:, 2:]
+    Qf, Rf = torch.linalg.qr(Dc, mode="complete")
+    return (torch.stack(Rs), torch.stack(C1s), torch.stack(Es),
+            torch.stack(Qs), Qf, Rf)
+
+
+def line_solve_plain(fac, r):
+    """Solve the y-line systems of every column: r (NY, NX, 2)."""
+    R, C1, E, Q, Qf, Rf = fac
+    NY, NX = r.shape[0], r.shape[1]
+    zc, Z = r[0], []
+    for y in range(NY - 1):
+        v = torch.cat([zc, r[y + 1]], dim=-1)[..., None]     # (NX, 4, 1)
+        zz = (Q[y].transpose(-1, -2) @ v)[..., 0]            # (NX, 4)
+        Z.append(zz[:, :2])
+        zc = zz[:, 2:]
+    zl = (Qf.transpose(-1, -2) @ zc[..., None])[..., 0]
+
+    def tri(Rm, v):
+        return torch.linalg.solve_triangular(Rm, v[..., None],
+                                             upper=True)[..., 0]
+
+    xl = tri(Rf, zl)
+    x1 = xl
+    x2 = torch.zeros((NX, 2), dtype=r.dtype, device=r.device)
+    X = [xl]
+    for y in range(NY - 2, -1, -1):
+        rhs = (Z[y] - (C1[y] @ x1[..., None])[..., 0]
+               - (E[y] @ x2[..., None])[..., 0])
+        x = tri(R[y], rhs)
+        X.append(x)
+        x1, x2 = x, x1
+    return torch.stack(X[::-1])                              # (NY, NX, 2)
+
+
+@functools.cache
+def _lib():
+    lib = load_library(LIB_NAME, SOURCES)
+    for fn in (lib.cmfem_line_factor_f32, lib.cmfem_line_factor_f64):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.cmfem_line_solve_f32, lib.cmfem_line_solve_f64):
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.cmfem_linemg_error_string.argtypes = [ctypes.c_int]
+    lib.cmfem_linemg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build():
+    """Build and load the kernels' library now (it is built lazily)."""
+    _lib()
+
+
+def _check(name, tensors, dtype, device):
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {dtype} not supported")
+    for t in tensors:
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: tensors on {t.device} in {t.dtype}, "
+                             f"expected {device} in {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: a tensor is not contiguous")
+
+
+def _launch(fn, args, device):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = _lib().cmfem_linemg_error_string(err).decode()
+        raise RuntimeError(f"linemg kernel launch failed: {msg} ({err})")
+
+
+def line_factor(SS):
+    """(R, C1, E, Q, Qf, Rf) of every x-column's y-line system of the
+    canonical stencil SS (3, 3, NY, NX, 2, 2): the kernel on a CUDA tensor,
+    ``line_factor_plain`` on the CPU."""
+    global launches_factor
+    if SS.device.type == "cpu":
+        return line_factor_plain(SS)
+    if SS.dim() != 6 or tuple(SS.shape[:2]) != (3, 3) \
+            or tuple(SS.shape[4:]) != (2, 2):
+        raise ValueError(f"line_factor: SS has shape {tuple(SS.shape)}, "
+                         f"expected (3, 3, NY, NX, 2, 2)")
+    A_l, A_d, A_u = (SS[0, 1].contiguous(), SS[1, 1].contiguous(),
+                     SS[2, 1].contiguous())
+    _check("line_factor", (A_l, A_d, A_u), SS.dtype, SS.device)
+    NY, NX = A_d.shape[0], A_d.shape[1]
+    new = lambda *shape: torch.empty(shape, dtype=SS.dtype, device=SS.device)
+    R, C1, E = (new(NY - 1, NX, 2, 2) for _ in range(3))
+    Q = new(NY - 1, NX, 4, 4)
+    Qf, Rf = new(NX, 2, 2), new(NX, 2, 2)
+    lib = _lib()
+    fn = (lib.cmfem_line_factor_f32 if SS.dtype == torch.float32
+          else lib.cmfem_line_factor_f64)
+    _launch(fn, [t.data_ptr() for t in (A_l, A_d, A_u, R, C1, E, Q, Qf, Rf)]
+            + [NY, NX], SS.device)
+    launches_factor += 1
+    return R, C1, E, Q, Qf, Rf
+
+
+def line_solve(fac, r):
+    """The y-line solves of every column for r (NY, NX, 2) with
+    ``line_factor``'s factors: the kernel on a CUDA tensor,
+    ``line_solve_plain`` on the CPU."""
+    global launches_solve
+    if r.device.type == "cpu":
+        return line_solve_plain(fac, r)
+    R, C1, E, Q, Qf, Rf = fac
+    NY, NX = r.shape[0], r.shape[1]
+    want = ((NY - 1, NX, 2, 2),) * 3 + ((NY - 1, NX, 4, 4), (NX, 2, 2),
+                                        (NX, 2, 2))
+    if r.dim() != 3 or r.shape[2] != 2 or any(
+            tuple(t.shape) != w for t, w in zip(fac, want)):
+        raise ValueError("line_solve: factors and r (NY, NX, 2) disagree")
+    _check("line_solve", (*fac, r), r.dtype, r.device)
+    out = torch.empty_like(r)
+    lib = _lib()
+    fn = (lib.cmfem_line_solve_f32 if r.dtype == torch.float32
+          else lib.cmfem_line_solve_f64)
+    _launch(fn, [t.data_ptr() for t in (R, C1, E, Q, Qf, Rf, r, out)]
+            + [NY, NX], r.device)
+    launches_solve += 1
+    return out

@@ -70,7 +70,10 @@ class LaplacianSmoother:
     def __init__(self, fes: FESpace, top_dofs, bottom_dofs, *, device,
                  dtype=torch.float64):
         self.n = fes.nscalar
+        # a fixed-order scatter: with index_add_'s atomics the repeats of a
+        # solve on the card differed at the ulp level (ROADMAP C10)
         self.ops = SpaceOps(fes, device=device, dtype=dtype)
+        self.ops.fix_scatter_order()
         self.form = BilinearForm(self.ops).add_diffusion(1.0)
         self.bc = EssentialBC(self.n, np.unique(np.concatenate(
             [top_dofs, bottom_dofs])), device=device)

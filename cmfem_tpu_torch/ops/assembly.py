@@ -75,6 +75,27 @@ def _supg_tau(b, k, gf: GeometricFactors):
     return h / (2.0 * bnorm) * xi
 
 
+def dof_slots(eldofs, n):
+    """(n, K) int64 on ``eldofs``'s device: row i lists the positions in
+    ``eldofs.reshape(-1)`` that hold DOF i, in increasing order, padded with
+    ``eldofs.numel()`` (a zero row) to the largest count K."""
+    flat = eldofs.reshape(-1).cpu().numpy()
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=n)
+    rank = np.arange(flat.size) - np.repeat(np.cumsum(counts) - counts, counts)
+    slots = np.full((n, counts.max()), flat.size, dtype=np.int64)
+    slots[flat[order], rank] = order
+    return torch.as_tensor(slots, device=eldofs.device)
+
+
+def fixed_order_scatter(y_e, slots):
+    """(ne, nd) element contributions -> (n,) by summing each DOF's slots
+    (``dof_slots``) in a fixed order: the same bits on every run, where the
+    atomics of ``index_add_`` on the card add in an order that changes."""
+    rows = torch.cat([y_e.reshape(-1), y_e.new_zeros(1)])
+    return rows[slots].sum(dim=1)
+
+
 class SpaceOps:
     """Per-(space, quadrature) tabulations + geometric factors as tensors
     on ``device`` in ``dtype``.  The factors are computed on the device in
@@ -171,8 +192,20 @@ class SpaceOps:
         gref = torch.einsum("qnr,en->eqr", self.G, u[self.eldofs])
         return torch.sum(gf.invJ * gref[..., :, None], dim=-2)
 
+    def fix_scatter_order(self):
+        """Make ``scatter`` (and so every form's apply and diagonal on these
+        ops) sum each DOF's element slots in a fixed order (``dof_slots``)
+        instead of ``index_add_``, whose atomics on the card add in an order
+        that changes from run to run.  Returns self."""
+        self._slots = dof_slots(self.eldofs, self.fes.nscalar)
+        return self
+
     def scatter(self, y_e):
-        """(ne, ndof) element contributions -> global (n,) by index_add_."""
+        """(ne, ndof) element contributions -> global (n,): by index_add_, or
+        in a fixed order after ``fix_scatter_order``."""
+        slots = getattr(self, "_slots", None)
+        if slots is not None:
+            return fixed_order_scatter(y_e, slots)
         out = torch.zeros(self.fes.nscalar, dtype=y_e.dtype,
                           device=y_e.device)
         return out.index_add_(0, self.eldofs.reshape(-1), y_e.reshape(-1))

@@ -7,8 +7,8 @@ B^T D B per element, ``PAOperator`` (any mesh: ``u[eldofs]`` gather and
 scatter of ``StructuredGrid3D``).  Their element stage is decided once, at
 construction (``element_path``): on CUDA tensors it is
 ``kernels.btdb.btdb_apply``, the hand-written CUDA kernel that replaces the
-TPU's ``_pallas_btdb``, and an element the kernel has no instantiation for
-(triangles, tets, a rule with more than p + 1 points per axis) is refused
+TPU's ``_pallas_btdb`` (every element shape of the JAX package's spaces at
+orders 1-4, ``kernels.btdb.KERNEL_SHAPES``), and any other shape is refused
 there and then; ``btdb_plain`` (a port of ``_xla_btdb``, which takes any
 mesh) runs on CPU tensors and where the caller asks for it with
 ``use_kernel=False``.  The gather and scatter stay torch ops, as the JAX
@@ -113,9 +113,10 @@ class PAOperator(_ElementBatched):
     """Matrix-free operator for an arbitrary (unstructured) mesh.
 
     Gather/scatter via ``u[eldofs]`` / ``index_add_``; the element stage is
-    named by ``path``: ``"cuda-btdb"`` (the B1 kernel, on CUDA tensors: hexes
-    and quads at orders 1-4 with p + 1 points per axis, and a ValueError at
-    construction for any other element) or ``"plain-btdb"`` (CPU tensors,
+    named by ``path``: ``"cuda-btdb"`` (the B1 kernel, on CUDA tensors:
+    triangles, quads, tets and hexes at orders 1-4 under the rules of
+    ``kernels.btdb.KERNEL_SHAPES``, and a ValueError at construction for any
+    other shape) or ``"plain-btdb"`` (CPU tensors,
     or ``use_kernel=False``).  Acts on entity-numbered vectors."""
 
     def __init__(self, ops: SpaceOps, data: OperatorData, *,

@@ -23,20 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .assembly import SpaceOps, eval_coefficient
-
-
-def dof_slots(eldofs, n):
-    """(n, K) int64 on ``eldofs``'s device: row i lists the positions in
-    ``eldofs.reshape(-1)`` that hold DOF i, in increasing order, padded with
-    ``eldofs.numel()`` (a zero row) to the largest count K."""
-    flat = eldofs.reshape(-1).cpu().numpy()
-    order = np.argsort(flat, kind="stable")
-    counts = np.bincount(flat, minlength=n)
-    rank = np.arange(flat.size) - np.repeat(np.cumsum(counts) - counts, counts)
-    slots = np.full((n, counts.max()), flat.size, dtype=np.int64)
-    slots[flat[order], rank] = order
-    return torch.as_tensor(slots, device=eldofs.device)
+from .assembly import SpaceOps, dof_slots, eval_coefficient
 
 
 def _scatter_components(y_e, slots):

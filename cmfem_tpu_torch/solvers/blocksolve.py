@@ -13,7 +13,10 @@ systems with MUMPS LU).  The Jacobian stays in the element-block form of
 - the operator apply is a batched (ne, 2nd, 2nd) matvec plus an
   ``index_add_`` scatter, or on a strip dof lattice a stencil (DIA) matvec
   of shifted windows;
-- the outer solve is the port's restarted GMRES (``solvers.krylov``).
+- the outer solve is the port's restarted GMRES (``solvers.krylov``);
+- on a strip lattice ``pc="linemg"`` replaces the point-block factors by the
+  x-semicoarsened line multigrid of ``solvers.linemg``, whose iteration
+  count does not grow with refinement.
 
 ``BlockTridiagDirect`` factors the order-1 strip's block-tridiagonal
 system by a block-QR elimination down the y levels and uses the banded
@@ -31,10 +34,7 @@ import torch
 
 from ..ops.lattice2d import StripLatticeOps, cluster_x_columns
 from .krylov import gmres
-
-_LINEMG = ("pc='linemg' (the line-multigrid preconditioner, "
-           "cmfem_tpu/solvers/linemg.py) is not ported yet: ROADMAP queue A "
-           "item 15")
+from .linemg import StripLineMG
 
 
 def strip_dof_lattice(positions, tol_factor=1e-8):
@@ -150,15 +150,15 @@ class BlockNewtonKrylov:
     ess_T, ess_p : essential-DOF index arrays for the T and p fields.
     restart, maxiter : GMRES(m) restart length and outer-cycle cap.
     dof_lattice  : (NY, NX) strip lattice for the stencil (DIA) matvec.
+    pc           : "pointblock" (the 2x2 point-block factors) or "linemg"
+                   (``solvers.linemg.StripLineMG``; needs an order-1 lattice).
     device       : where the factors and the solve live.
     """
 
     def __init__(self, element_dofs, n, ess_T, ess_p,
                  restart: int = 400, maxiter: int = 10, dof_lattice=None,
                  pc: str = "pointblock", *, device):
-        if pc == "linemg":
-            raise NotImplementedError(_LINEMG)
-        if pc != "pointblock":
+        if pc not in ("pointblock", "linemg"):
             raise ValueError(f"unknown pc {pc!r}")
         self.pc = pc
         self.device = torch.device(device)
@@ -178,6 +178,12 @@ class BlockNewtonKrylov:
         self.restart = int(restart)
         self.maxiter = int(maxiter)
         self._init_lattice(ed, mask, dof_lattice)
+        self.mg = None
+        if pc == "linemg":
+            if self.lattice is None:
+                raise ValueError("pc='linemg' requires a dof lattice")
+            self.mg = StripLineMG(self.lattice["NY"], self.lattice["NX"],
+                                  self.lattice["offs"])
 
     def _init_lattice(self, ed, mask, dof_lattice):
         """Precompute the stencil-assembly map for lattice (DIA) mode.
@@ -247,7 +253,8 @@ class BlockNewtonKrylov:
         """BC elimination, equilibration and the PC (see
         ``equilibrated_block_factors``); in lattice mode also assembles the
         scaled blocks into the (4, KO, NY, NX) stencil and permutes the
-        PC/scaling vectors into lattice layout."""
+        PC/scaling vectors into lattice layout.  With ``pc="linemg"`` the
+        line-MG level hierarchy takes the point-block factors' place."""
         Je_s, pb, s = equilibrated_block_factors(
             Je, self.lmask, self.mask2, self._gather, self._scatter,
             self.nd, self.n)
@@ -275,6 +282,9 @@ class BlockNewtonKrylov:
             S = torch.zeros(4 * ngrid, dtype=Je_s.dtype, device=Je_s.device)
             S.index_add_(0, idx4.reshape(-1), blocks.reshape(-1))
             S = S.reshape(4, L["KO"], NY, NX)
+        if self.mg is not None:
+            return S, self.mg.setup(S, L["mask2_lat"], self.n), \
+                s[L["latflat2"]]
         return S, pb[:, L["latflat"]], s[L["latflat2"]]
 
     @staticmethod
@@ -324,10 +334,24 @@ class BlockNewtonKrylov:
     def _solve_impl(self, Je_s, pb, s, b, rtol, atol):
         if self.lattice is not None:
             L = self.lattice
-            res = solve_equilibrated(
-                lambda y: _shift_windows(Je_s, y, L, self.n), pb, s,
-                b[L["latflat2"]], L["mask2_lat"], self.n, rtol, atol,
-                self.restart, self.maxiter)
+            bl = b[L["latflat2"]]
+            if self.mg is not None:
+                # pb is the line-MG level hierarchy
+                def apply_A(y):
+                    return torch.where(L["mask2_lat"], y,
+                                       _shift_windows(Je_s, y, L, self.n))
+
+                res = gmres(apply_A, s * bl,
+                            M=lambda r: self.mg.apply(pb, r,
+                                                      mask=L["mask2_lat"]),
+                            rtol=rtol, atol=atol, restart=self.restart,
+                            maxiter=self.maxiter)
+                res = res._replace(x=s * res.x)
+            else:
+                res = solve_equilibrated(
+                    lambda y: _shift_windows(Je_s, y, L, self.n), pb, s, bl,
+                    L["mask2_lat"], self.n, rtol, atol, self.restart,
+                    self.maxiter)
             return res._replace(x=res.x[L["dofperm2"]])
 
         def matvec(y):

@@ -33,9 +33,33 @@ def _identity(x):
     return x
 
 
+def neumaier_dot(a, b, chunks: int = 256):
+    """Compensated (Neumaier/Kahan) dot product, as
+    ``cmfem_tpu.solvers.krylov.neumaier_dot``: products in the working
+    dtype, ``chunks`` partial sums by the fast reduction, and the partials
+    combined by a sequential Neumaier compensation (a host loop here, a
+    ``lax.scan`` there) -- accumulation error O(eps) instead of
+    O(eps sqrt(chunks)); the products' own rounding remains.  Pass as
+    ``cg(..., dot=neumaier_dot)``."""
+    p = a.reshape(-1) * b.reshape(-1)
+    n = p.shape[0]
+    c = min(chunks, n)
+    p = torch.nn.functional.pad(p, (0, (-n) % c)).reshape(c, -1)
+    partials = torch.sum(p, dim=1)
+    s = torch.zeros((), dtype=p.dtype, device=p.device)
+    comp = torch.zeros_like(s)
+    for v in partials:
+        t = s + v
+        comp = comp + torch.where(torch.abs(s) >= torch.abs(v),
+                                  (s - t) + v, (v - t) + s)
+        s = t
+    return s + comp
+
+
 def cg(apply_A: Callable, b, x0=None, M: Callable | None = None,
        rtol=1e-12, atol=0.0, maxiter=1000,
-       dot: Callable | None = None, stall_window: int = 64) -> SolveResult:
+       dot: Callable | None = None, stall_window: int = 64,
+       norm: Callable | None = None) -> SolveResult:
     """Preconditioned conjugate gradients for SPD operators.
 
     As ``cmfem_tpu.solvers.krylov.cg``: convergence, stagnation and the
@@ -46,17 +70,25 @@ def cg(apply_A: Callable, b, x0=None, M: Callable | None = None,
     or on a FLAT WINDOW (no 10%-below-best improvement for
     ``stall_window`` iterations while the latest true residual sits within
     2x of the best).  ``stall_window=0`` disables both, and the
-    checkpoints."""
+    checkpoints.
+
+    ``dot`` and ``norm`` (default ``torch.dot`` and
+    ``torch.linalg.vector_norm``) are the inner product and the 2-norm of
+    the vectors' layout: a distributed operator whose ranks each hold a
+    slab passes its own, reduced over the ranks, so that every rank takes
+    the same tolerance and leaves the loop at the same iteration (a
+    deviation: the JAX package's reductions are global by construction)."""
     x0 = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
     M = M or _identity
     dot = dot or torch.dot
+    norm = norm or torch.linalg.vector_norm
     window = int(stall_window) if stall_window else (maxiter + 1)
     check = max(1, window // 2) if stall_window else (maxiter + 2)
 
     r = (b - apply_A(x0)).to(b.dtype)
     z = M(r).to(b.dtype)
     rz = dot(r, z)
-    bnorm = torch.linalg.vector_norm(b)
+    bnorm = norm(b)
     tol2 = torch.clamp(rtol * bnorm, min=atol) ** 2
     x, p = x0, z
     rr = dot(r, r)
@@ -94,7 +126,7 @@ def cg(apply_A: Callable, b, x0=None, M: Callable | None = None,
         k += 1
 
     # explicit final residual: the recursive r under-reports in f32
-    rnorm = torch.linalg.vector_norm(b - apply_A(x))
+    rnorm = norm(b - apply_A(x))
     converged = bool(rnorm <= torch.sqrt(tol2) + 1e-300)
     stagnated = (not converged) and (detach >= 2 or flat()
                                      or bool(rr <= tol2))

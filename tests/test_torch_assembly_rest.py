@@ -286,15 +286,15 @@ def test_element_path_takes_the_kernel_where_instantiated(shape):
 
 
 @pytest.mark.parametrize("shape", [
-    (3, 3, 3), (3, 6, 6), (3, 10, 12),   # triangles at orders 1-3
-    (4, 4, 4), (4, 10, 11),              # tets
+    (3, 3, 3), (3, 6, 6), (3, 10, 12),   # triangles under no rule of theirs
+    (4, 4, 4), (4, 10, 11),              # tets likewise
     (4, 216, 216), (3, 36, 36),          # hexes and quads at order 5
-    (4, 27, 64), (3, 9, 16),             # rules with q1 != p + 1
+    (4, 27, 125), (3, 9, 25),            # rules with q1 = p + 3
 ])
 def test_element_path_is_plain_elsewhere(shape):
-    """No instantiation of the kernel: a CUDA operator is refused in
-    ``btdb_apply``'s words, and the plain version runs only on the CPU or
-    where the caller asks for it."""
+    """A shape no space of the JAX package produces at orders 1-4: a CUDA
+    operator is refused in ``btdb_apply``'s words, and the plain version
+    runs only on the CPU or where the caller asks for it."""
     with pytest.raises(ValueError, match="not one of"):
         element_path(*shape, "cuda", torch.float32)
     assert element_path(*shape, "cpu", torch.float32) == "plain-btdb"
@@ -304,14 +304,13 @@ def test_element_path_is_plain_elsewhere(shape):
 
 @pytest.mark.parametrize("kind,order,quad_order", [
     ("triangle", 1, 2), ("triangle", 3, 6), ("quad", 2, 4),
-    ("hex", 4, 11),  # 6 points per axis: (4, 125, 216), not instantiated
+    ("hex", 4, 11),  # 6 points per axis: (4, 125, 216)
 ])
 def test_pa_operator_path_on_cpu_matches_apply(kind, order, quad_order):
     """On CPU tensors every operator is on the plain path, packs no stream,
     and agrees with ``BilinearForm.apply`` (1e-12 of max|y|); ``path`` is
-    read-only.  (Both packages' spaces stop at order 4, so the hexes the
-    kernel has no instantiation for are those of a rule with more than
-    p + 1 points per axis, and order-5 shapes given as arrays below.)"""
+    read-only.  (Both packages' spaces stop at order 4; order-5 shapes,
+    which the kernel does not take, are given as arrays below.)"""
     _, mesh = _meshes(kind) if kind != "hex" \
         else (None, make_cartesian_mesh_3d(1, 2, 1))
     ops = SpaceOps(FESpace(mesh, order), quad_order=quad_order, device="cpu")
@@ -353,12 +352,12 @@ def test_pa_operator_from_arrays_at_order_5_shapes_is_plain():
 
 @pytest.mark.gpu
 def test_cuda_pa_operator_paths_agree_with_apply():
-    """On the card: hexes and quads at orders 1-4 go through the kernel and
-    move its launch count.  Triangles at orders 1-3 and hexes with more than
-    p + 1 points per axis are refused at construction, as ``btdb_apply``
-    refuses them, and with ``use_kernel=False`` go through the plain version
-    and leave the count alone.  Each apply agrees with
-    ``BilinearForm.apply`` (float64 1e-12, float32 1e-5 of max|y|)."""
+    """On the card: triangles, quads, tets and hexes at orders 1-4, under
+    p + 1 points per axis and (triangles, hexes) p + 2, go through the kernel
+    and move its launch count; with ``use_kernel=False`` they go through the
+    plain version and leave the count alone.  Each apply agrees with
+    ``BilinearForm.apply`` (float64 1e-12, float32 1e-5 of max|y|).  A shape
+    outside ``KERNEL_SHAPES`` is refused by ``btdb_apply`` in its words."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from cmfem_tpu_torch.kernels import btdb as kbtdb
@@ -368,38 +367,39 @@ def test_cuda_pa_operator_paths_agree_with_apply():
     tri = make_cartesian_mesh_2d(7, 5, geom="triangle")
     quad = make_cartesian_mesh_2d(7, 5)
     hexes = make_cartesian_mesh_3d(3, 4, 5)
-    cases = [(tri, p, 2 * p, False) for p in (1, 2, 3)]
-    cases += [(hexes, 4, 11, False), (hexes, 2, 7, False)]
-    cases += [(m, p, 2 * p, True) for m in (quad, hexes)
+    from chip_smoke import tet_mesh
+
+    tets = tet_mesh(2)
+    cases = [(tri, p, 2 * p + 2) for p in (1, 2, 3)]
+    cases += [(hexes, 4, 11), (hexes, 2, 7)]
+    cases += [(m, p, 2 * p) for m in (tri, quad, tets, hexes)
               for p in (1, 2, 3, 4)]
-    for mesh, order, quad_order, kernel in cases:
+    for mesh, order, quad_order in cases:
         ops = SpaceOps(FESpace(mesh, order), quad_order=quad_order, device=dev)
         form = BilinearForm(ops).add_mass(1.0).add_diffusion(_smooth)
         data = form.assemble()
         u = torch.as_tensor(rng.standard_normal(ops.fes.nscalar), device=dev)
         ref = form.apply(data, u)
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-            if not kernel:
-                with pytest.raises(ValueError, match="not one of"):
-                    PAOperator(ops, data, dtype=dtype)
-            pa = PAOperator(ops, data, dtype=dtype, use_kernel=kernel)
-            assert pa.path == ("cuda-btdb" if kernel else "plain-btdb")
-            assert (pa.BG_stream is not None) == (
-                (pa.m, pa.BG.shape[1], pa.nq) in kbtdb.TILED_SHAPES
-                and kernel)
-            before = kbtdb.launches
-            y = pa(u.to(dtype))
-            assert kbtdb.launches == before + kernel
-            err = float((y.double() - ref).abs().max() / ref.abs().max())
-            assert err <= tol, (mesh.geom, order, quad_order, dtype, err)
-            if not kernel:
-                with pytest.raises(ValueError, match="not one of"):
-                    kbtdb.btdb_apply(pa.BG, u.to(dtype)[pa.eldofs_T],
-                                     pa.Dflat)
+            for kernel in (True, False):
+                pa = PAOperator(ops, data, dtype=dtype, use_kernel=kernel)
+                assert pa.path == ("cuda-btdb" if kernel else "plain-btdb")
+                assert (pa.BG_stream is not None) == (
+                    (pa.m, pa.BG.shape[1], pa.nq) in kbtdb.TILED_SHAPES
+                    and kernel)
+                before = kbtdb.launches
+                y = pa(u.to(dtype))
+                assert kbtdb.launches == before + kernel
+                err = float((y.double() - ref).abs().max() / ref.abs().max())
+                assert err <= tol, (mesh.geom, order, quad_order, dtype, err)
     ops = SpaceOps(FESpace(hexes, 2), quad_order=7, device=dev)
     data = BilinearForm(ops).add_mass(1.0).assemble()
     grid = StructuredGrid3D(3, 4, 5, 2)
-    with pytest.raises(ValueError, match="not one of"):
-        StructuredPAOperator(ops, data, grid)
+    spa = StructuredPAOperator(ops, data, grid)
+    assert spa.path == "cuda-btdb" and spa.BG_stream is not None
     spa = StructuredPAOperator(ops, data, grid, use_kernel=False)
     assert spa.path == "plain-btdb" and spa.BG_stream is None
+    BG = torch.zeros((3 * 36, 36), device=dev)
+    with pytest.raises(ValueError, match="not one of"):
+        kbtdb.btdb_apply(BG, torch.zeros((36, 5), device=dev),
+                         torch.zeros((9, 36, 5), device=dev))

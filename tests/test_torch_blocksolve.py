@@ -228,8 +228,11 @@ def test_solver_choice_and_refusals():
                                       fes2.node_positions, device="cpu")
     assert type(solver).__name__ == "BlockNewtonKrylov"
     assert solver.lattice is not None          # order 2: DIA GMRES
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # line MG needs a lattice, as in the JAX package
+    with pytest.raises(ValueError, match="requires a dof lattice"):
         P.BlockNewtonKrylov(ed, n, ess, ess, pc="linemg", device="cpu")
+    with pytest.raises(ValueError, match="unknown pc"):
+        P.BlockNewtonKrylov(ed, n, ess, ess, pc="ilu", device="cpu")
     with pytest.raises(ValueError):
         P.BlockTridiagDirect(ed, n, ess, ess, dof_lattice=None,
                              device="cpu")

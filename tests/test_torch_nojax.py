@@ -64,7 +64,14 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.apps.ablation_case2_2_test",
             "cmfem_tpu_torch.motion.recession",
             "cmfem_tpu_torch.motion.remap",
-            "cmfem_tpu_torch.core.tracksample"} <= set(mods)
+            "cmfem_tpu_torch.core.tracksample",
+            "cmfem_tpu_torch.solvers.linemg",
+            "cmfem_tpu_torch.kernels.linemg", "cmfem_tpu_torch.parallel",
+            "cmfem_tpu_torch.parallel.partition",
+            "cmfem_tpu_torch.parallel.sharding",
+            "cmfem_tpu_torch.parallel.dofpart",
+            "cmfem_tpu_torch.parallel.launch",
+            "cmfem_tpu_torch.ops.sumfact_sharded"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
