@@ -26,7 +26,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. the B^T D B kernel against its plain version at every shape of
      ``kernels.btdb.KERNEL_SHAPES`` (the (m, nd, nq) of the JAX package's
      spaces at orders 1-4): operators on hexes (3,4,5), quads (7,5),
-     triangles (7,5) and tets (two tets refined twice, ``tet_mesh(2)``),
+     triangles (7,5) and tets (two tets refined twice, ``make_tet_mesh(2)``),
      orders 1-4 under q1 = p + 1, p + 2 and 3 points per axis, variable
      conductivity; each says ``path == "cuda-btdb"``, float64 to 1e-12
      max|y|, float32 to 1e-5 max|y| (each output sums m*nq <= 864
@@ -198,8 +198,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      (x to 1e-8), each apply's ms beside the single-device path's, peak
      device memory; (c) two gloo ranks on the one card (NCCL takes one rank
      per card), 8^3 at order 2: each operator against its single-device
-     apply (1e-12) or gloo's refusal named.  No kernel lies on these paths;
-     no launch count moves.
+     apply (1e-12); the one failure passed over is gloo's transport refusing
+     the z-split exchange of CUDA tensors, named with gloo's words, and any
+     other error fails the phase.  (a) moves the line kernels' counts
+     only; no kernel lies on (b) and (c), and no launch count moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
@@ -237,6 +239,7 @@ from cmfem_tpu_torch.core import (  # noqa: E402
     FESpace,
     make_cartesian_mesh_2d,
     make_cartesian_mesh_3d,
+    make_tet_mesh,
     write_gmsh,
 )
 from cmfem_tpu_torch.entry import (  # noqa: E402
@@ -296,27 +299,6 @@ def disc_mesh(n):
     return mesh.with_vertices(np.stack(
         [x * np.sqrt(1.0 - 0.5 * y * y), y * np.sqrt(1.0 - 0.5 * x * x)],
         axis=1))
-
-
-def tet_mesh(levels):
-    """Two tets sharing a face, (0,0,0)-(1,0,0)-(0,1,0)-(0,0,1) and
-    (1,0,0)-(0,1,0)-(0,0,1)-(1,1,1), refined uniformly ``levels`` times
-    (2 * 8^levels tets; boundary attributes 1-3)."""
-    from cmfem_tpu_torch.core.mesh import Mesh
-    from cmfem_tpu_torch.core.reference_elements import (
-        GEOM_FACES, TETRAHEDRON, TRIANGLE)
-
-    verts = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
-                      [0.0, 0.0, 1.0], [1.0, 1.0, 1.0]])
-    conn = np.array([[0, 1, 2, 3], [1, 2, 3, 4]], dtype=np.int32)
-    faces = [tuple(int(e[i]) for i in f) for e in conn
-             for f in GEOM_FACES[TETRAHEDRON]]
-    faces = [f for f in faces if set(f) != {1, 2, 3}]  # the shared face
-    mesh = Mesh(dim=3, geom=TETRAHEDRON, vertices=verts, elem_conn=conn,
-                elem_attr=np.ones(2, dtype=np.int32), bdr_geom=TRIANGLE,
-                bdr_conn=np.asarray(faces, dtype=np.int32),
-                bdr_attr=np.array([1, 2, 3, 1, 2, 3], dtype=np.int32))
-    return mesh.uniform_refine(levels) if levels else mesh
 
 
 def cdr(f):
@@ -1665,31 +1647,6 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
 JAX_14A_LINEMG = {5_760: 35, 86_130: 56}
 
 
-def first_newton_system(device, tmp, ref_levels, label):
-    """Case 1's first Newton system of step 1 (phase 11c's) on phase 11's
-    strip refined ``ref_levels`` times: (case, element blocks, R)."""
-    from cmfem_tpu_torch.apps import ablation_case1
-    from cmfem_tpu_torch.core import make_strip_mesh_2d
-
-    strip = os.path.join(tmp, "strip14.msh")
-    if not os.path.exists(strip):
-        write_gmsh(make_strip_mesh_2d(11, 239), strip)
-    cfg = {"mesh_file": strip, "material_file": TACOT_DECK, "order": 1,
-           "dt": 0.1, "t_final": 0.1, "bdr_attr_top": 3, "probe_x": 0.00125,
-           "newton_print_level": 0, "save_paraview": False,
-           "serial_ref_levels": ref_levels,
-           "output_path": os.path.join(tmp, f"c1_{label}")}
-    c = ablation_case1.Case1(cfg, device, torch.float64)
-    T, p = c.initial_fields()
-    X = c.initial_state().extent
-    To, po = c.ops.values_at_qp(T), c.ops.values_at_qp(p)
-    T, p = c.enforce_bc(T, p, ablation_case1.evaluate_schedule(c.schedule,
-                                                               c.dt))
-    R = c.residual(T, p, To, po, X, c.dt)
-    blocks = c.sys.element_jacobians(T, p, To, po, X, c.dt)
-    return c, blocks, R
-
-
 def linemg_kernels_vs_plain(device, hierarchy, timing=False):
     """The line-MG kernels against their plain versions at the finest level
     of a hierarchy of phase 14a (outside the counted runs): the kernels'
@@ -1745,18 +1702,18 @@ def linemg_kernels_vs_plain(device, hierarchy, timing=False):
     return out
 
 
-def run_linemg(device, tmp, ref_levels=2, refs=True, pointblock_iters=None,
-               pointblock_refined=False):
+def run_linemg(device, tmp, ref_levels=2, refs=True, pointblock_iters=None):
     """Phase 14a: ``BlockNewtonKrylov(pc="linemg")`` (restart 400, rtol
     1e-12) on the first Newton system of 11a (5,760 DOFs) and of 11d's
     strip (``ref_levels`` refinements, 86,130 DOFs): inner iterations,
     set-up ms, solve s, the true relative residual on the host matrix, and
     the direction against the direct solve (host ``splu`` on the strip,
     ``BlockTridiagDirect`` refined), to 1e-8.  ``pointblock_iters`` is
-    phase 11c's point-block count on the first system; with
-    ``pointblock_refined`` the point-block GMRES(400) also runs on the
-    refined one (not in chip_smoke's run: ~30 s)."""
+    phase 11c's point-block count on the first system (the point-block
+    GMRES on both systems: ``python -m cmfem_tpu_torch.profiling
+    --sections linemg``)."""
     from cmfem_tpu_torch.apps import ablation_case1
+    from cmfem_tpu_torch.profiling import first_newton_system
     from cmfem_tpu_torch.solvers.blocksolve import (
         BlockNewtonKrylov, BlockTridiagDirect, strip_dof_lattice)
 
@@ -1783,38 +1740,32 @@ def run_linemg(device, tmp, ref_levels=2, refs=True, pointblock_iters=None,
                "linemg (GMRES(400), rtol 1e-12), one Newton system",
                "dofs": 2 * c.n, "direct": direct, "direct_s": dir_s,
                "direct_true_rel": true_rel(d_dir)}
-        pcs = ("linemg", "pointblock") if (lv > 0 and pointblock_refined) \
-            else ("linemg",)
-        for pc in pcs:
-            bks = BlockNewtonKrylov(ed, c.n, c.ess, c.ess, restart=400,
-                                    maxiter=10, dof_lattice=lat, pc=pc,
-                                    device=device)
-            reset_counts()
-            fac, setup_s = timed(lambda: bks.prepare(blocks))
-            res, solve_s = timed(lambda: bks.solve(fac, b, rtol=1e-12))
-            launched = counts()
-            moved = {k for k, v in launched.items() if v}
-            assert moved == ({"line_factor", "line_solve"} if pc == "linemg"
-                             else set()), launched
-            d = rel2(res.x, d_dir)
-            tr = true_rel(res.x)
-            rec[pc] = {"inner_iters": res.inner_iters,
-                       "restart_cycles": res.iters,
-                       "converged_flag": res.converged,
-                       "setup_ms": 1e3 * setup_s, "solve_s": solve_s,
-                       "true_rel_residual": tr, "direction_vs_direct": d,
-                       "launches": {k: launched[k] for k in moved}}
-            log(f"phase 14a: {2 * c.n} DOFs, pc={pc}: {res.inner_iters} "
-                f"inner iterations ({res.iters} cycles), set-up "
-                f"{1e3 * setup_s:.1f} ms, solve {solve_s:.3f} s, true rel "
-                f"residual {tr:.3e} ({direct}: "
-                f"{rec['direct_true_rel']:.3e}), direction vs {direct} "
-                f"{d:.3e}" + (" (tol 1e-8)" if pc == "linemg" else "")
-                + f"; launches {rec[pc]['launches']}")
-            assert pc != "linemg" or d <= 1e-8, (pc, d)
-            if pc == "linemg":
-                hierarchy = fac[1]
-            del bks, fac
+        bks = BlockNewtonKrylov(ed, c.n, c.ess, c.ess, restart=400,
+                                maxiter=10, dof_lattice=lat, pc="linemg",
+                                device=device)
+        reset_counts()
+        fac, setup_s = timed(lambda: bks.prepare(blocks))
+        res, solve_s = timed(lambda: bks.solve(fac, b, rtol=1e-12))
+        launched = counts()
+        moved = {k for k, v in launched.items() if v}
+        assert moved == {"line_factor", "line_solve"}, launched
+        d = rel2(res.x, d_dir)
+        tr = true_rel(res.x)
+        rec["linemg"] = {"inner_iters": res.inner_iters,
+                         "restart_cycles": res.iters,
+                         "converged_flag": res.converged,
+                         "setup_ms": 1e3 * setup_s, "solve_s": solve_s,
+                         "true_rel_residual": tr, "direction_vs_direct": d,
+                         "launches": {k: launched[k] for k in moved}}
+        log(f"phase 14a: {2 * c.n} DOFs, pc=linemg: {res.inner_iters} inner "
+            f"iterations ({res.iters} cycles), set-up {1e3 * setup_s:.1f} "
+            f"ms, solve {solve_s:.3f} s, true rel residual {tr:.3e} "
+            f"({direct}: {rec['direct_true_rel']:.3e}), direction vs "
+            f"{direct} {d:.3e} (tol 1e-8); launches "
+            f"{rec['linemg']['launches']}")
+        assert d <= 1e-8, d
+        hierarchy = fac[1]
+        del bks, fac
         rec["kernels"] = linemg_kernels_vs_plain(device, hierarchy,
                                                  timing=lv > 0)
         del hierarchy
@@ -1960,8 +1911,9 @@ def dist_small_rank(n_devices, device, p2p_only=False):
     collective operators (``ShardedPoissonApply``, ``DofPartitionedOperator``
     with its Jacobi-CG against the single-device CG), or with ``p2p_only``
     the z-split ``ShardedSumFactOperator`` (its halo is point-to-point),
-    each against its single-device apply; an operator whose collectives the
-    backend refuses records the error instead."""
+    each against its single-device apply.  Any error propagates, but for
+    gloo's transport refusing the z-split exchange on CUDA tensors
+    (``gloo_refusal``), which is recorded instead."""
     from cmfem_tpu_torch.ops.sumfact_sharded import ShardedSumFactOperator
     from cmfem_tpu_torch.parallel import (DofPartitionedOperator,
                                           ShardedPoissonApply,
@@ -1980,12 +1932,6 @@ def dist_small_rank(n_devices, device, p2p_only=False):
     u = torch.as_tensor(np.random.default_rng(3).standard_normal(
         fes.nscalar), device=dev)
     out = {"rank": mesh.rank, "device": str(dev)}
-
-    def check(name, fn):
-        try:
-            out[name] = fn()
-        except (RuntimeError, ValueError) as e:
-            out[name] = {"error": f"{type(e).__name__}: {e}"[:400]}
 
     def sharded():
         op = ShardedPoissonApply(ops, cdata, mesh)
@@ -2011,12 +1957,28 @@ def dist_small_rank(n_devices, device, p2p_only=False):
         return {"max_rel_err": rel_err(op.from_sharded(op(op.to_sharded(u))),
                                        fn(u, D))}
 
-    if p2p_only:
-        check("ShardedSumFactOperator", zsplit)
-    else:
-        check("ShardedPoissonApply", sharded)
-        check("DofPartitionedOperator", dofpart)
+    if not p2p_only:
+        out["ShardedPoissonApply"] = sharded()
+        out["DofPartitionedOperator"] = dofpart()
+        return out
+    try:
+        out["ShardedSumFactOperator"] = zsplit()
+    except RuntimeError as e:
+        if dev.type != "cuda" or gloo_refusal(str(e)) is None:
+            raise
+        out["ShardedSumFactOperator"] = {"error": gloo_refusal(str(e))}
     return out
+
+
+def gloo_refusal(text):
+    """The first line of gloo's TCP transport failing a point-to-point
+    exchange of CUDA tensors (it reads the device pointer as host memory:
+    ``pair.cc ... writev ... Bad address`` on the sender, ``Connection
+    closed by peer`` on the other rank, or the same as an abort's last
+    words in a dead rank's stderr), or None for any other error."""
+    m = re.search(r"\[[^\]\n]*gloo/transport/tcp/pair\.cc:\d+\] "
+                  r"(writev|Read error|Connection closed by peer)[^\n]*", text)
+    return None if m is None else m.group(0)
 
 
 def run_gloo_on_card(device, world=2, timeout=120):
@@ -2024,8 +1986,9 @@ def run_gloo_on_card(device, world=2, timeout=120):
     the one card (NCCL takes one rank per card), each operator against its
     single-device apply (1e-12 of max|y|; CG iteration counts equal, x to
     1e-8).  An operator that gloo refuses on CUDA tensors is named with
-    gloo's error (for a rank that dies in the exchange, the last lines of
-    its stderr)."""
+    gloo's error (for a rank that dies in the exchange, from the last
+    lines of its stderr); that is the only failure it passes over: any
+    other error of any operator fails the phase."""
     from cmfem_tpu_torch.parallel import spawn_ranks
 
     kind = torch.device(device).type
@@ -2037,10 +2000,10 @@ def run_gloo_on_card(device, world=2, timeout=120):
                                device=device, backend="gloo",
                                timeout=timeout)
         except RuntimeError as e:  # a rank died: its stderr's last lines
-            if not p2p_only:
+            if not p2p_only or kind != "cuda" or gloo_refusal(str(e)) is None:
                 raise
-            return [{"ShardedSumFactOperator": {"error": str(e)[-600:]}}] \
-                * world
+            return [{"ShardedSumFactOperator":
+                     {"error": gloo_refusal(str(e))}}] * world
 
     # the collective operators and the point-to-point one in two worlds at
     # once: a rank that gloo kills in the exchange takes only its own world
@@ -2053,6 +2016,8 @@ def run_gloo_on_card(device, world=2, timeout=120):
         got = [r[name] for r in ranks]
         errors = sorted({g["error"] for g in got if "error" in g})
         if errors:
+            assert name == "ShardedSumFactOperator" and all(
+                gloo_refusal(e) == e for e in errors), (name, errors)
             rec[name] = {"refused": errors}
             log(f"phase 14c: {name}, {world} gloo ranks on CUDA tensors: "
                 f"refused: " + " | ".join(errors))
@@ -2218,7 +2183,7 @@ def main():
             ("hex", 3, make_cartesian_mesh_3d(3, 4, 5)),
             ("quad", 2, make_cartesian_mesh_2d(7, 5)),
             ("triangle", 2, make_cartesian_mesh_2d(7, 5, geom="triangle")),
-            ("tet", 3, tet_mesh(2))):
+            ("tet", 3, make_tet_mesh(2))):
         for order in (1, 2, 3, 4):
             # q1 = p + 1, p + 2 and 3 points per axis
             for quad_order in (2 * order, 2 * order + 2, 4):

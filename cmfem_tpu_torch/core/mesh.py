@@ -22,6 +22,7 @@ from .reference_elements import (
     TETRAHEDRON,
     HEXAHEDRON,
     GEOM_DIM,
+    GEOM_FACES,
 )
 
 # GMSH element type id -> (geometry, n corner nodes)
@@ -363,6 +364,23 @@ def make_cartesian_mesh_3d(nx: int, ny: int, nz: int, sx=1.0, sy=1.0, sz=1.0) ->
     bdr_conn = np.asarray(bdr_conn, dtype=np.int32)
     bdr_attr = np.asarray(bdr_attr, dtype=np.int32)
     return Mesh(3, HEXAHEDRON, verts, conn, attr, QUAD, bdr_conn, bdr_attr)
+
+
+def make_tet_mesh(levels: int = 0) -> Mesh:
+    """Two tets sharing a face, (0,0,0)-(1,0,0)-(0,1,0)-(0,0,1) and
+    (1,0,0)-(0,1,0)-(0,0,1)-(1,1,1), refined uniformly ``levels`` times
+    (2 * 8^levels tets; boundary attributes 1-3)."""
+    verts = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                      [0.0, 0.0, 1.0], [1.0, 1.0, 1.0]])
+    conn = np.array([[0, 1, 2, 3], [1, 2, 3, 4]], dtype=np.int32)
+    faces = [tuple(int(e[i]) for i in f) for e in conn
+             for f in GEOM_FACES[TETRAHEDRON]]
+    faces = [f for f in faces if set(f) != {1, 2, 3}]  # the shared face
+    mesh = Mesh(dim=3, geom=TETRAHEDRON, vertices=verts, elem_conn=conn,
+                elem_attr=np.ones(2, dtype=np.int32), bdr_geom=TRIANGLE,
+                bdr_conn=np.asarray(faces, dtype=np.int32),
+                bdr_attr=np.array([1, 2, 3, 1, 2, 3], dtype=np.int32))
+    return mesh.uniform_refine(levels) if levels else mesh
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,32 @@ def fixed_order_scatter(y_e, slots):
     return rows[slots].sum(dim=1)
 
 
+def qp_block_apply(B, G, u_e, d00, d01, d10, d11):
+    """Element-local B^T D B quadrature apply: u_e (ne, nd) -> y_e (ne, nd)
+    through whichever of the four QP data blocks are present (None =
+    absent).  The element stage of ``BilinearForm.apply`` and of the
+    element-split operators of ``parallel``."""
+    uq = torch.einsum("qn,en->eq", B, u_e)
+    gq = torch.einsum("qnr,en->eqr", G, u_e)
+    bq = None
+    if d00 is not None:
+        bq = d00 * uq
+    if d01 is not None:
+        t = torch.sum(d01 * gq, dim=-1)
+        bq = t if bq is None else bq + t
+    fq = None
+    if d10 is not None:
+        fq = d10 * uq[..., None]
+    if d11 is not None:
+        t = torch.sum(d11 * gq[..., None, :], dim=-1)
+        fq = t if fq is None else fq + t
+    y_e = None if bq is None else torch.einsum("qn,eq->en", B, bq)
+    if fq is not None:
+        t = torch.einsum("qnr,eqr->en", G, fq)
+        y_e = t if y_e is None else y_e + t
+    return torch.zeros_like(u_e) if y_e is None else y_e
+
+
 class SpaceOps:
     """Per-(space, quadrature) tabulations + geometric factors as tensors
     on ``device`` in ``dtype``.  The factors are computed on the device in
@@ -343,24 +369,9 @@ class BilinearForm:
     def apply(self, data: OperatorData, u):
         """Matrix-free y = A u (partial assembly apply)."""
         ops = self.ops
-        u_e = u[ops.eldofs]  # (ne, ndof)
-        uq = torch.einsum("qn,en->eq", ops.B, u_e)
-        gq = torch.einsum("qnr,en->eqr", ops.G, u_e)
-        bq = torch.zeros_like(uq)
-        if data.d00 is not None:
-            bq = bq + data.d00 * uq
-        if data.d01 is not None:
-            bq = bq + torch.sum(data.d01 * gq, dim=-1)
-        fq = None
-        if data.d10 is not None:
-            fq = data.d10 * uq[..., None]
-        if data.d11 is not None:
-            t = torch.sum(data.d11 * gq[..., None, :], dim=-1)
-            fq = t if fq is None else fq + t
-        y_e = torch.einsum("qn,eq->en", ops.B, bq)
-        if fq is not None:
-            y_e = y_e + torch.einsum("qnr,eqr->en", ops.G, fq)
-        return ops.scatter(y_e)
+        return ops.scatter(qp_block_apply(ops.B, ops.G, u[ops.eldofs],
+                                          data.d00, data.d01, data.d10,
+                                          data.d11))
 
     def element_matrices(self, data: OperatorData):
         """(ne, ndof, ndof) dense local matrices (full local assembly)."""

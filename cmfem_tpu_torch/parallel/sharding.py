@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from .. import require_cuda
-from ..ops.assembly import dof_slots, fixed_order_scatter
+from ..ops.assembly import dof_slots, fixed_order_scatter, qp_block_apply
 
 
 @dataclass(frozen=True)
@@ -121,33 +121,6 @@ def shard_elements(mesh: DeviceMesh, *arrays):
             a = torch.cat([a, a.new_zeros((ne_pad - ne,) + a.shape[1:])])
         outs.append(a[lo:hi].contiguous())
     return outs, ne_pad
-
-
-def qp_block_apply(B, G, u_e, d00, d01, d10, d11):
-    """Element-local B^T D B quadrature apply: u_e (nel, nd) -> y_e (nel, nd)
-    through whichever of the four QP data blocks are present (None =
-    absent).  Shared by every element-split operator body
-    (``ShardedPoissonApply``, ``DofPartitionedOperator``)."""
-    uq = torch.einsum("qn,en->eq", B, u_e)
-    gq = torch.einsum("qnr,en->eqr", G, u_e)
-    bq = None
-    if d00 is not None:
-        bq = d00 * uq
-    if d01 is not None:
-        t = torch.sum(d01 * gq, dim=-1)
-        bq = t if bq is None else bq + t
-    fq = None
-    if d10 is not None:
-        fq = d10 * uq[..., None]
-    if d11 is not None:
-        t = torch.sum(d11 * gq[..., None, :], dim=-1)
-        fq = t if fq is None else fq + t
-    y_e = torch.zeros_like(u_e)
-    if bq is not None:
-        y_e = y_e + torch.einsum("qn,eq->en", B, bq)
-    if fq is not None:
-        y_e = y_e + torch.einsum("qnr,eqr->en", G, fq)
-    return y_e
 
 
 def operator_blocks(data):

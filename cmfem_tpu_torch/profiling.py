@@ -1,4 +1,4 @@
-"""Where the time of slices 2, 3, 6, 7, 8, 9 and 10's paths goes, on one GPU.
+"""Where the time of slices 2, 3, 6 to 11's paths goes, on one GPU.
 
     python -m cmfem_tpu_torch.profiling [--n 48] [--out FILE]
                                         [--sections operators,vcycle,...]
@@ -42,6 +42,11 @@ order-2 elements:
   differenced, and each piece alone at the run's final state — residual,
   ``vmap(jacfwd)`` element Jacobians, block-QR factorization, banded solve
   with its GMRES, the host ``splu`` path, state advance;
+- the first Newton system of that step (section ``linemg``; chip_smoke
+  phase 14a's two systems, 5,760 and 86,130 DOFs) through GMRES(400) at
+  rtol 1e-12 with the line-multigrid and the point-block preconditioners:
+  inner iterations, set-up and solve time, the true residual and the
+  direction against the block-tridiagonal direct solve;
 - one step of the ablation case-2.1 driver (section ``ablation_case21``) on
   the same strip with the synthetic B' table and the schedule fixture,
   through the eager host-LU path and ``scan_stepping``, differenced as
@@ -429,6 +434,85 @@ def profile_ablation(n, dev, rng, out, nx=11, ny=239, ref_levels=(0, 2)):
             torch.cuda.empty_cache()
 
 
+def first_newton_system(device, tmp, ref_levels, label, nx=11, ny=239):
+    """Case 1's first Newton system of step 1 on the graded strip (nx x ny
+    quads, written to ``tmp`` once) refined ``ref_levels`` times, with the
+    synthetic TACOT deck: (the ``Case1``, its element blocks, R)."""
+    from .apps import ablation_case1
+    from .core import make_strip_mesh_2d
+
+    strip = os.path.join(tmp, f"strip{nx}x{ny}.msh")
+    if not os.path.exists(strip):
+        write_gmsh(make_strip_mesh_2d(nx, ny), strip)
+    cfg = {"mesh_file": strip, "material_file": DECK, "order": 1,
+           "dt": 0.1, "t_final": 0.1, "bdr_attr_top": 3, "probe_x": 0.00125,
+           "newton_print_level": 0, "save_paraview": False,
+           "serial_ref_levels": ref_levels,
+           "output_path": os.path.join(tmp, f"c1_{label}")}
+    c = ablation_case1.Case1(cfg, device, torch.float64)
+    T, p = c.initial_fields()
+    X = c.initial_state().extent
+    To, po = c.ops.values_at_qp(T), c.ops.values_at_qp(p)
+    T, p = c.enforce_bc(T, p, ablation_case1.evaluate_schedule(c.schedule,
+                                                               c.dt))
+    R = c.residual(T, p, To, po, X, c.dt)
+    blocks = c.sys.element_jacobians(T, p, To, po, X, c.dt)
+    return c, blocks, R
+
+
+def profile_linemg(n, dev, rng, out, ref_levels=(0, 2)):
+    """The first Newton system of the ablation case-1 step (chip_smoke
+    phase 14a's two systems: the 11 x 239 strip, 5,760 DOFs, and refined
+    twice, 86,130) through ``BlockNewtonKrylov`` GMRES(400) at rtol 1e-12,
+    10 restart cycles at most, with ``pc="linemg"`` and ``pc="pointblock"``:
+    inner iterations, set-up and solve (host clock, device synchronized),
+    the true relative residual on the host matrix, and the direction
+    against ``BlockTridiagDirect``'s, float64."""
+    from .apps import ablation_case1
+    from .solvers.blocksolve import (BlockNewtonKrylov, BlockTridiagDirect,
+                                     strip_dof_lattice)
+
+    def timed(fn):
+        _sync()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync()
+        return res, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for lv in ref_levels:
+            c, blocks, R = first_newton_system(dev, tmp, lv, f"lmg{lv}")
+            b = -R
+            lat = strip_dof_lattice(c.fes.node_positions)
+            ed = c.fes.element_dofs
+            btd = BlockTridiagDirect(ed, c.n, c.ess, c.ess, dof_lattice=lat,
+                                     device=dev)
+            d_dir = btd.solve(btd.prepare(blocks), b, rtol=1e-12).x
+            A = c.host_matrix(blocks)
+            b_np = b.cpu().numpy()
+            for pc in ("linemg", "pointblock"):
+                bks = BlockNewtonKrylov(ed, c.n, c.ess, c.ess, restart=400,
+                                        maxiter=10, dof_lattice=lat, pc=pc,
+                                        device=dev)
+                fac, setup_s = timed(lambda: bks.prepare(blocks))
+                res, solve_s = timed(lambda: bks.solve(fac, b, rtol=1e-12))
+                tr = float(np.linalg.norm(A @ res.x.cpu().numpy() - b_np)
+                           / np.linalg.norm(b_np))
+                d = float(torch.linalg.vector_norm(res.x - d_dir)
+                          / torch.linalg.vector_norm(d_dir))
+                out(f"== ablation_case1 first Newton system, {2 * c.n} DOFs "
+                    f"(strip refined {lv}x), pc={pc}: {res.inner_iters} "
+                    f"inner iterations ({res.iters} cycles, converged flag "
+                    f"{res.converged}), set-up {1e3 * setup_s:.1f} ms, "
+                    f"solve {solve_s:.3f} s, true rel residual {tr:.3e}, "
+                    f"direction vs BlockTridiagDirect {d:.3e}")
+                del bks, fac
+            c.finish({k: 0.0 for k in ablation_case1.TIMING_KEYS
+                      + ("newton", "total")}, 0.0)
+            del c, blocks, R, A, btd
+            torch.cuda.empty_cache()
+
+
 def profile_ablation_case21(n, dev, rng, out, nx=11, ny=239):
     """One step of the ablation case-2.1 driver on chip_smoke's phase-12
     strip (11 x 239 quads, 5,760 DOFs) with the synthetic deck, B' table
@@ -631,7 +715,7 @@ SECTIONS = {"operators": profile_operators, "vcycle": profile_vcycle,
             "zchain": profile_zchain, "driver": profile_driver,
             "nonlinear": profile_nonlinear,
             "elasticity_cg": profile_elasticity_cg,
-            "ablation": profile_ablation,
+            "ablation": profile_ablation, "linemg": profile_linemg,
             "ablation_case21": profile_ablation_case21,
             "ablation_case22": profile_ablation_case22}
 

@@ -24,20 +24,18 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402
 from cmfem_tpu.solvers import BlockNewtonKrylov as JBNK  # noqa: E402
 from cmfem_tpu_torch.apps.ablation_case1 import TIMING_KEYS  # noqa: E402
+from cmfem_tpu_torch.profiling import first_newton_system  # noqa: E402
 from cmfem_tpu_torch.solvers.blocksolve import (  # noqa: E402
     BlockNewtonKrylov, strip_dof_lattice)
 
 
 def main():
-    torch.cuda.synchronize = lambda *a, **k: None  # chip_smoke.timed
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         for lv in (0, 2):
-            c, blocks, R = chip_smoke.first_newton_system("cpu", tmp, lv,
-                                                          f"j{lv}")
+            c, blocks, R = first_newton_system("cpu", tmp, lv, f"j{lv}")
             ed = c.fes.element_dofs
             lat = strip_dof_lattice(c.fes.node_positions)
             b = -R.numpy()

@@ -27,6 +27,7 @@ from cmfem_tpu.ops import assembly as jasm
 
 from cmfem_tpu_torch.core import (
     FESpace, factors_for, make_cartesian_mesh_2d, make_cartesian_mesh_3d,
+    make_tet_mesh,
 )
 from cmfem_tpu_torch.kernels.btdb import KERNEL_SHAPES
 from cmfem_tpu_torch.ops import BilinearForm, EssentialBC, SpaceOps
@@ -367,9 +368,7 @@ def test_cuda_pa_operator_paths_agree_with_apply():
     tri = make_cartesian_mesh_2d(7, 5, geom="triangle")
     quad = make_cartesian_mesh_2d(7, 5)
     hexes = make_cartesian_mesh_3d(3, 4, 5)
-    from chip_smoke import tet_mesh
-
-    tets = tet_mesh(2)
+    tets = make_tet_mesh(2)
     cases = [(tri, p, 2 * p + 2) for p in (1, 2, 3)]
     cases += [(hexes, 4, 11), (hexes, 2, 7)]
     cases += [(m, p, 2 * p) for m in (tri, quad, tets, hexes)

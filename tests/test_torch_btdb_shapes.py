@@ -15,10 +15,10 @@ import torch
 
 import jax.numpy as jnp
 
-from chip_smoke import tet_mesh
 from test_torch_partial_tiles import emulate
 
-from cmfem_tpu_torch.core import FESpace, make_cartesian_mesh_2d
+from cmfem_tpu_torch.core import (FESpace, make_cartesian_mesh_2d,
+                                  make_tet_mesh)
 from cmfem_tpu_torch.kernels import btdb as kbtdb
 from cmfem_tpu_torch.ops import BilinearForm, SpaceOps
 from cmfem_tpu_torch.ops.partial import PAOperator
@@ -56,7 +56,7 @@ def _meshes(geom):
         return m.with_vertices(m.vertices + 0.03 * rng.standard_normal(
             m.vertices.shape) * (np.abs(m.vertices - 0.5) < 0.49).all(
                 axis=1, keepdims=True))
-    return tet_mesh(1)
+    return make_tet_mesh(1)
 
 
 def _jax_mesh(m):
@@ -181,7 +181,7 @@ def test_cuda_btdb_every_shape_matches_plain():
 
     dev = torch.device("cuda")
     meshes = {"triangle": make_cartesian_mesh_2d(5, 4, geom="triangle"),
-              "quad": make_cartesian_mesh_2d(5, 4), "tet": tet_mesh(2),
+              "quad": make_cartesian_mesh_2d(5, 4), "tet": make_tet_mesh(2),
               "hex": make_cartesian_mesh_3d(3, 4, 5)}
     seen = set()
     rng = np.random.default_rng(4)

@@ -151,6 +151,47 @@ def test_shard_elements_pads_with_zeros():
     assert ne_pad == 8 and out.shape == (2, 2) and not out.any()
 
 
+@pytest.mark.parametrize("present", [
+    ("d00", "d01", "d10", "d11"), ("d00",), ("d11",), ("d10", "d11"),
+    ("d00", "d01")])
+def test_qp_block_apply_matches_jax(present):
+    """The element stage shared by ``BilinearForm.apply`` and the
+    element-split operators against the JAX package's ``qp_block_apply``
+    (float64, 1e-12 of max|y|), with some of the QP blocks absent; and
+    ``BilinearForm.apply`` is that stage scattered."""
+    from cmfem_tpu.parallel.sharding import qp_block_apply as jqp
+    from cmfem_tpu_torch.ops import assembly as tasm
+    from cmfem_tpu_torch.parallel import sharding as tsh
+
+    assert tsh.qp_block_apply is tasm.qp_block_apply
+    rng = np.random.default_rng(len(present))
+    ne, nq, nd, dim = 7, 9, 6, 2
+    shapes = {"d00": (ne, nq), "d01": (ne, nq, dim), "d10": (ne, nq, dim),
+              "d11": (ne, nq, dim, dim)}
+    arrays = [rng.standard_normal(s) for s in
+              ((nq, nd), (nq, nd, dim), (ne, nd))]
+    blocks = [rng.standard_normal(shapes[k]) if k in present else None
+              for k in ("d00", "d01", "d10", "d11")]
+    y = tasm.qp_block_apply(*[None if a is None else torch.as_tensor(a)
+                              for a in arrays + blocks])
+    want = np.asarray(jqp(*[None if a is None else jnp.asarray(a)
+                            for a in arrays + blocks]))
+    assert float(np.abs(y.numpy() - want).max()) \
+        <= 1e-12 * np.abs(want).max()
+
+    from cmfem_tpu_torch.ops import BilinearForm, SpaceOps
+    from cmfem_tpu_torch.core import FESpace
+
+    ops = SpaceOps(FESpace(make_cartesian_mesh_2d(3, 2), 2), device="cpu")
+    form = (BilinearForm(ops).add_mass(1.0).add_diffusion(0.5)
+            .add_convection((1.0, -0.5)))
+    data = form.assemble()
+    u = torch.as_tensor(rng.standard_normal(ops.fes.nscalar))
+    y_e = tasm.qp_block_apply(ops.B, ops.G, u[ops.eldofs], data.d00,
+                              data.d01, data.d10, data.d11)
+    assert torch.equal(form.apply(data, u), ops.scatter(y_e))
+
+
 def test_make_device_mesh_refusals():
     from cmfem_tpu_torch.parallel import make_device_mesh
 
