@@ -202,6 +202,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      the z-split exchange of CUDA tensors, named with gloo's words, and any
      other error fails the phase.  (a) moves the line kernels' counts
      only; no kernel lies on (b) and (c), and no launch count moves.
+ 15. slice 12, the distributed ablation Newton
+     (``run_distributed_ablation``, ``run_ablation_gloo_on_card``),
+     float64: (a) in a world of one NCCL rank, at the deck's 5,760 DOFs:
+     on the first Newton system of case 2.1's step 1 (SEB,
+     chemistry-blowing branch) ``ShardedAblationNewton`` and
+     ``DofPartitionedAblationNewton``: the residual = the single-device
+     residual to 1e-12 of max|R|; on case 1's first system the same and
+     the Newton direction (GMRES rtol 1e-13) = ``splu``'s per field to
+     1e-7; ms per residual, ``prepare`` and
+     matvec call, GMRES iterations, per-rank floats; one case-1 step with
+     ``dof_partition: 1`` and one case-2.2 step with ``sharding_devices:
+     1`` through ``run(cfg)``: their first-step rows = 11a's and 13a's (T
+     to 1e-6, 2.2's pressure probes and case 1's m_dot_g to 1e-8), the same
+     linear solves, s per step with the Newton split; (b) on case 1's strip
+     refined twice (86,130 DOFs): each class's residual, ``prepare``'s
+     Je_s, pb and s and one matvec = the single-device path's
+     (``BlockNewtonKrylov`` on the element blocks) to 1e-12, ms per call
+     beside it, peak device memory; (c) two gloo ranks on the one card:
+     ``entry.dryrun_ablation_rank`` (two element-sharded iterates, the
+     DOF-partitioned one and a receded case-2.2 one against them, to 1e-6)
+     and a ``save_sharded``/``load_sharded`` round trip of a
+     DOF-partitioned state, bit for bit; a load at world size 1 is refused
+     in the words "world size"; (c) runs beside (a) and (b).  Any error
+     fails the phase; no kernel lies on it, and no launch count moves.
 Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
 to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
@@ -211,8 +235,8 @@ sum-factorization kernel also ``earlier_ms``, the colour design's time in
 the same run), before it the drivers' JSON records (phase 9's, phase 10's,
 phase 11's, phase 12's and phase 13's: DOFs, steps, seconds per step,
 Newton and Krylov iterations, errors; phases 10-13 with the card; phase
-14's {"linemg", "distributed", "gloo_on_card"}), then the card's name
-and power limit, and
+14's {"linemg", "distributed", "gloo_on_card"}; phase 15's
+{"distributed_ablation": ...}), then the card's name and power limit, and
 {"ok": true,
 "device": {...}}.  Imports no JAX.
 """
@@ -922,6 +946,21 @@ def csv_agree(path_a, path_b, rtol, floors=None):
     return float(np.max(np.abs(a - b) / (rtol * np.abs(b) + floor + 1e-300)))
 
 
+def first_step_rows(out_dir, r):
+    """A run's output rows at its first step (t = 0.1; phase 15a holds the
+    distributed drivers to them): the probe temperatures (wall column
+    included), the pressure probes where the driver writes them, m_dot_g,
+    the linear solves of step 1."""
+    _, probes = read_csv(os.path.join(out_dir, "temperature_probes.csv"))
+    _, mass = read_csv(os.path.join(out_dir, "mass_metrics.csv"))
+    press = os.path.join(out_dir, "pressure_probes.csv")
+    return {"t": float(probes[1, 0]),
+            "T": [float(v) for v in probes[1, 1:]],
+            "p": ([float(v) for v in read_csv(press)[1][1, 1:]]
+                  if os.path.exists(press) else None),
+            "m_dot_g": float(mass[1, 1]), "newton": r["newton_iters"][0]}
+
+
 def split_median(timing, keys=("residual", "jacobian", "factorization",
                                "linear", "update", "state", "output")):
     return {k: statistics.median(t.get(k, 0.0) for t in timing) for k in keys}
@@ -987,7 +1026,8 @@ def run_ablation_case1(device, tmp, nx=11, ny=239, steps=6, ref_levels=2,
         "driver": "ablation_case1", "variant": "host LU (splu)",
         "dofs": 2 * ra["fes"].nscalar, "steps": len(ra["timing"]),
         "run_s": secs, "s_per_step": per_step, "newton_split_s": split,
-        "newton_iters_per_step": ra["newton_iters"], **final})
+        "newton_iters_per_step": ra["newton_iters"], **final,
+        "first_step": first_step_rows(out("c1_lu"), ra)})
 
     # -- 11b. scan_stepping: the block-QR direct solver on the card
     rb, secs, per_step, split = drive(
@@ -1615,7 +1655,8 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
         "split_s": split, "newton_iters_per_step": ra["newton_iters"],
         "moved": ra["moved"], "recession_m": ra["recession_total"],
         "jacobian_check": jc, "rows": rows, "vs_jax": d_jax,
-        "peak_mem_gib": peak})
+        "peak_mem_gib": peak, "first_step": first_step_rows(out("c22_lu"),
+                                                            ra)})
     records.append({
         "driver": "ablation_case2_2", "variant": "scan_stepping (block QR)",
         "dofs": 2 * rb["fes"].nscalar, "steps": len(rb["timing"]),
@@ -2079,6 +2120,372 @@ def ablation_residual_in_turns(device, r):
         paths.setdefault(path, []).append(
             ms_per_call(device, lambda: call(path), reps=10))
     return paths
+
+
+def rel_max(a, b):
+    """max|a - b| / max|b| of two tensors."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def newton_pieces(nw, dofpart, T, p, slabs, dt, bc=None):
+    """One class's Newton system at (T, p): (the global residual, the
+    ``prepare`` factors, ``solve(factors, rtol)`` of J dx = -R, the map of
+    a distributed vector to the global layout, the residual and
+    ``prepare`` calls alone, and (T, p) in the class's vector layout)."""
+    if dofpart:
+        y = nw.to_dist2(T, p)
+        Rd = nw.residual(y, *slabs, dt, bc=bc)
+        fac = nw.prepare(y, *slabs, dt, bc=bc)
+        glob = lambda v: torch.cat(nw.gather2(v))
+        return (glob(Rd), fac, lambda f, r: nw.solve(f, -Rd, rtol=r),
+                glob, lambda: nw.residual(y, *slabs, dt, bc=bc),
+                lambda: nw.prepare(y, *slabs, dt, bc=bc), y)
+    R = nw.residual(T, p, *slabs, dt, bc=bc)
+    fac = nw.prepare(T, p, *slabs, dt, bc=bc)
+    return (R, fac, lambda f, r: nw.solve(f, -R, rtol=r), lambda v: v,
+            lambda: nw.residual(T, p, *slabs, dt, bc=bc),
+            lambda: nw.prepare(T, p, *slabs, dt, bc=bc), torch.cat([T, p]))
+
+
+def class_slabs(nw, dofpart, *arrays):
+    return tuple(nw.pack_elem(a, "dup") if dofpart else nw.pad_elem(a)
+                 for a in arrays)
+
+
+def run_distributed_ablation(device, tmp, first_c1, first_c22, nx=11,
+                             ny=239, ref_levels=2, reps=5, rtol=1e-13):
+    """Phases 15a and 15b: the distributed ablation Newton in a world of
+    one rank over NCCL (gloo on a CPU), in this process, float64.
+
+    15a, at the deck's size (``nx`` x ``ny`` strip, 5,760 DOFs): on the
+    first Newton system of case 2.1's step 1 (SEB on the
+    chemistry-blowing branch) and of case 1's, each class's residual
+    against the single-device residual (1e-12 of max|R|), on case 1's its
+    Newton direction (GMRES at ``rtol``) against ``splu``'s per field
+    (1e-7), with ms per residual, ``prepare`` and matvec call, GMRES
+    iterations, per-rank floats; then one case-1 step with
+    ``dof_partition: 1`` and one case-2.2 step with ``sharding_devices:
+    1`` through ``run(cfg)``,
+    held against 11a's and 13a's first-step rows (``first_c1``,
+    ``first_c22``: T to 1e-6; p (2.2's pressure probes, case 1's m_dot_g)
+    to 1e-8; the same linear solves), with s per step and the Newton
+    split.  15b, on case 1's first system on the strip refined
+    ``ref_levels`` times (86,130 DOFs): the residual, ``prepare``'s
+    Je_s/pb/s and one matvec of each class against the single-device path
+    (``BlockNewtonKrylov`` on the element blocks), to 1e-12, ms per call
+    beside the single-device path's; peak device memory of each."""
+    import torch.distributed as dist
+
+    from cmfem_tpu_torch.apps import (ablation_case1, ablation_case2_1,
+                                      ablation_case2_2)
+    from cmfem_tpu_torch.core import make_strip_mesh_2d
+    from cmfem_tpu_torch.parallel import (DofPartitionedAblationNewton,
+                                          ShardedAblationNewton, init_rank,
+                                          make_device_mesh)
+    from cmfem_tpu_torch.solvers.blocksolve import BlockNewtonKrylov
+
+    cuda = torch.device(device).type == "cuda"
+    classes = (("sharded", ShardedAblationNewton, False),
+               ("dofpart", DofPartitionedAblationNewton, True))
+    ms = lambda fn: ms_per_call(device, fn, reps=reps)
+    peak = lambda: (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                    else float("nan"))
+    strip = write_gmsh(make_strip_mesh_2d(nx, ny),
+                       os.path.join(tmp, "strip15.msh"))
+    tri = write_gmsh(make_strip_mesh_2d(nx, ny, geom="triangle"),
+                     os.path.join(tmp, "strip15_tri.msh"))
+    base = {"material_file": TACOT_DECK, "order": 1, "dt": 0.1,
+            "t_final": 0.1, "bdr_attr_top": 3, "probe_x": 0.00125,
+            "newton_print_level": 0, "save_paraview": False,
+            "output_every": 1}
+    out = {}
+    init_rank(0, 1, os.path.join(tmp, "store15"), device=device)
+    try:
+        mesh = make_device_mesh(1, device=device)
+        out["backend"] = dist.get_backend()
+
+        # -- 15a. the first Newton systems of case 2.1 (SEB) and case 1 ------
+        # the residuals of the SEB system; the directions of case 1's, at
+        # rtol 1e-13 (the point-block GMRES, the single-device one too,
+        # stops 3.9e-7 from splu in p at rtol 1e-12 on case 1's system and
+        # 1.9e-7 on the SEB system; 2.6e-8 on case 1's at 1e-13)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        a = {}
+        for system, solve_it in (("case 2.1 (SEB)", False),
+                                 ("case 1", True)):
+            if solve_it:
+                c = ablation_case1.Case1(
+                    {**base, "mesh_file": strip,
+                     "output_path": os.path.join(tmp, "c1_15a_sys")},
+                    device, torch.float64)
+                bc, seb = None, None
+            else:
+                c = ablation_case2_1.Case21(
+                    {**base, "mesh_file": strip,
+                     "boundary_conditions_file": SCHEDULE_C21,
+                     "output_path": os.path.join(tmp, "c21_15a")}, device,
+                    torch.float64)
+            T, p = c.initial_fields()
+            X = c.initial_state().extent
+            To, po = c.ops.values_at_qp(T), c.ops.values_at_qp(p)
+            if solve_it:
+                T, p = c.enforce_bc(T, p, ablation_case1.evaluate_schedule(
+                    c.schedule, c.dt))
+                R = c.residual(T, p, To, po, X, c.dt)
+                d_lu = c.host_lu(c.sys.element_jacobians(
+                    T, p, To, po, X, c.dt)).solve(-R)
+            else:
+                bc, branch = c.boundary(c.dt)
+                seb = c.seb(branch)
+                T, p = c.enforce_bc(T, p, bc, c.dt)
+                R = c.residual(T, p, To, po, X, c.dt, bc, branch)
+            n = c.n
+            sysrec = {"dofs": 2 * n}
+            for name, cls, dofpart in classes:
+                nw = cls(c.sys, mesh, c.ess_T, c.ess, seb=seb)
+                slabs = class_slabs(nw, dofpart, To, po, X)
+                Rg, fac, solve, glob, res_fn, prep_fn, y = newton_pieces(
+                    nw, dofpart, T, p, slabs, c.dt, bc)
+                err_R = rel_max(Rg, R)
+                rec = {"residual_rel": err_R, "residual_ms": ms(res_fn),
+                       "prepare_ms": ms(prep_fn),
+                       "matvec_ms": ms(lambda: nw.matvec(fac[0], y))}
+                if dofpart:
+                    rec["per_device_floats"] = nw.per_device_floats()
+                msg = ""
+                if solve_it:
+                    res, solve_s = timed(lambda: solve(fac, rtol))
+                    dx = glob(res.x)
+                    err_d = max(rel_max(dx[:n], d_lu[:n]),
+                                rel_max(dx[n:], d_lu[n:]))
+                    rec.update(direction_rel_vs_splu=err_d,
+                               gmres_inner_iters=res.inner_iters,
+                               gmres_cycles=res.iters,
+                               converged=res.converged, solve_s=solve_s)
+                    msg = (f"; direction vs splu {err_d:.3e} per field (tol "
+                           f"1e-7), GMRES {res.inner_iters} iterations "
+                           f"({res.iters} cycles) in {solve_s:.3f} s")
+                    assert err_d <= 1e-7 and res.converged, rec
+                sysrec[name] = rec
+                log(f"phase 15a: {name}, {2 * n} DOFs, {system} step 1: "
+                    f"residual vs single device {err_R:.3e} (tol 1e-12)"
+                    f"{msg}; ms per residual {rec['residual_ms']:.2f}, "
+                    f"prepare {rec['prepare_ms']:.2f}, matvec "
+                    f"{rec['matvec_ms']:.3f}"
+                    + (f"; per-rank floats {rec['per_device_floats']}"
+                       if dofpart else ""))
+                assert err_R <= 1e-12, rec
+                del nw, slabs, fac
+            c.finish({k: 0.0 for k in ablation_case1.TIMING_KEYS
+                      + ("newton", "total")}, 0.0)
+            a[system] = sysrec
+            del c, R
+        a["peak_mem_gib"] = peak()
+        out["15a_newton_systems"] = a
+
+        # -- 15a. one driver step with each option ---------------------------
+        steps = []
+        for label, run, cfg, first, key in (
+                ("ablation_case1 dof_partition: 1", ablation_case1.run,
+                 {**base, "mesh_file": strip, "dof_partition": 1,
+                  "output_path": os.path.join(tmp, "c1_15a")}, first_c1,
+                 "m_dot_g"),
+                ("ablation_case2_2 sharding_devices: 1", ablation_case2_2.run,
+                 {**base, "mesh_file": tri, "bdr_attr_bottom": 1,
+                  "boundary_conditions_file": SCHEDULE_C21,
+                  "sharding_devices": 1,
+                  "output_path": os.path.join(tmp, "c22_15a")}, first_c22,
+                 "p")):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            r, secs = timed(lambda: run(cfg, device=device))
+            assert not any(counts().values()), counts()
+            got = first_step_rows(cfg["output_path"], r)
+            dT = max(abs(g - w) / abs(w) for g, w in zip(got["T"],
+                                                         first["T"]))
+            gp = got["p"] if key == "p" else [got["m_dot_g"]]
+            wp = first["p"] if key == "p" else [first["m_dot_g"]]
+            dp = max(abs(g - w) / abs(w) for g, w in zip(gp, wp))
+            st = {"driver": label, "s_per_step": r["timing"][0]["total"],
+                  "run_s": secs, "split_s": split_median(r["timing"]),
+                  "newton_iters": r["newton_iters"],
+                  "krylov_iters": r["krylov_iters"], "T_rel": dT,
+                  f"{key}_rel": dp, "peak_mem_gib": peak()}
+            steps.append(st)
+            log(f"phase 15a: {label}: 1 step {st['s_per_step']:.3f} s "
+                f"(split {json.dumps(st['split_s'])}); linear solves "
+                f"{r['newton_iters']} (host LU {first['newton']}), GMRES "
+                f"iterations {r['krylov_iters']}; vs the host-LU run's "
+                f"first-step rows: T {dT:.3e} (tol 1e-6), {key} {dp:.3e} "
+                f"(tol 1e-8)")
+            assert r["newton_iters"] == [first["newton"]], r["newton_iters"]
+            assert dT <= 1e-6 and dp <= 1e-8, (dT, dp)
+        out["15a_driver_steps"] = steps
+
+        # -- 15b. the refined strip: residual, prepare, one matvec ------------
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        c = ablation_case1.Case1(
+            {**base, "mesh_file": strip, "serial_ref_levels": ref_levels,
+             "output_path": os.path.join(tmp, "c1_15b")}, device,
+            torch.float64)
+        T, p = c.initial_fields()
+        X = c.initial_state().extent
+        To, po = c.ops.values_at_qp(T), c.ops.values_at_qp(p)
+        T, p = c.enforce_bc(T, p, ablation_case1.evaluate_schedule(
+            c.schedule, c.dt))
+        n = c.n
+        R = c.residual(T, p, To, po, X, c.dt)
+        bks = BlockNewtonKrylov(c.fes.element_dofs, n, c.ess, c.ess,
+                                device=device)
+        single_prepare = lambda: bks.prepare(c.sys.element_jacobians(
+            T, p, To, po, X, c.dt))
+        Je_ref, pb_ref, s_ref = single_prepare()
+        yv = torch.as_tensor(np.random.default_rng(15).standard_normal(
+            2 * n), device=device)
+        single_mv = lambda: bks._scatter(torch.einsum(
+            "eij,ej->ei", Je_ref, bks._gather(yv)))
+        mv_ref = single_mv()
+        b = {"dofs": 2 * n, "single_device_ms": {
+            "residual": ms(lambda: c.residual(T, p, To, po, X, c.dt)),
+            "prepare": ms(single_prepare), "matvec": ms(single_mv)}}
+        for name, cls, dofpart in classes:
+            nw = cls(c.sys, mesh, c.ess, c.ess)
+            slabs = class_slabs(nw, dofpart, To, po, X)
+            Rg, fac, _, glob, res_fn, prep_fn, _ = newton_pieces(
+                nw, dofpart, T, p, slabs, c.dt)
+            Je_s, pb, s = fac
+            if dofpart:
+                # one rank owns every DOF, in order: the owned slabs are
+                # the single-device layout
+                pb = pb.T
+                y = nw.to_dist2(yv[:n], yv[n:])
+                mv = glob(nw.matvec(Je_s, y))
+                want_mv = torch.where(bks.mask2, yv, mv_ref)
+            else:
+                y, want_mv = yv, mv_ref
+                mv = nw.matvec(Je_s, y)
+            errs = {"residual": rel_max(Rg, R),
+                    "Je_s": rel_max(Je_s[:Je_ref.shape[0]], Je_ref),
+                    "pb": rel_max(pb, pb_ref), "s": rel_max(s, s_ref),
+                    "matvec": rel_max(mv, want_mv)}
+            rec = {"max_rel_err": errs, "residual_ms": ms(res_fn),
+                   "prepare_ms": ms(prep_fn),
+                   "matvec_ms": ms(lambda: nw.matvec(Je_s, y))}
+            if dofpart:
+                rec["per_device_floats"] = nw.per_device_floats()
+            b[name] = rec
+            log(f"phase 15b: {name}, {2 * n} DOFs: vs the single-device "
+                f"path {json.dumps({k: f'{v:.3e}' for k, v in errs.items()})}"
+                f" (tol 1e-12); ms per residual {rec['residual_ms']:.2f} "
+                f"(single {b['single_device_ms']['residual']:.2f}), prepare "
+                f"{rec['prepare_ms']:.2f} "
+                f"({b['single_device_ms']['prepare']:.2f}), matvec "
+                f"{rec['matvec_ms']:.3f} "
+                f"({b['single_device_ms']['matvec']:.3f})")
+            assert max(errs.values()) <= 1e-12, errs
+            del nw, slabs, fac, Je_s
+        b["peak_mem_gib"] = peak()
+        log(f"phase 15b: peak device memory {b['peak_mem_gib']:.3f} GiB")
+        out["15b_refined"] = b
+        c.finish({k: 0.0 for k in ablation_case1.TIMING_KEYS
+                  + ("newton", "total")}, 0.0)
+        del c, bks, Je_ref
+    finally:
+        dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def ablation_gloo_rank(n_devices, device, ckpt):
+    """A rank of phase 15c: the ablation sections of the dry run
+    (``entry.dryrun_ablation_rank``), then a ``save_sharded`` /
+    ``load_sharded`` round trip of a ``DofPartitionedAblationNewton``'s
+    state (its two-field slab and packed old-state slabs) into ``ckpt``;
+    returns the dry run's record and whether every loaded slab equals the
+    saved one bit for bit."""
+    from cmfem_tpu_torch.core import make_cartesian_mesh_2d
+    from cmfem_tpu_torch.entry import dryrun_ablation_rank
+    from cmfem_tpu_torch.io.checkpoint import load_sharded, save_sharded
+    from cmfem_tpu_torch.parallel import (DofPartitionedAblationNewton,
+                                          make_device_mesh)
+    from cmfem_tpu_torch.physics.ablation import AblationState, AblationSystem
+    from cmfem_tpu_torch.physics.tacot import TacotMaterial
+
+    t0 = time.perf_counter()
+    out = {"dryrun": dryrun_ablation_rank(n_devices, device, TACOT_DECK)}
+    t1 = time.perf_counter()
+    mesh = make_device_mesh(n_devices, device=device)
+    dev = mesh.device
+    fes = FESpace(make_cartesian_mesh_2d(3, 8, sx=0.0025, sy=0.05), 1)
+    ops = SpaceOps(fes, quad_order=4, device=dev, dtype=torch.float64)
+    sys_ = AblationSystem(ops, TacotMaterial.load_yaml(TACOT_DECK),
+                          top_attr=3)
+    top = fes.boundary_dofs([3])
+    dn = DofPartitionedAblationNewton(sys_, mesh, top, top)
+    gen = np.random.default_rng(15)
+    T = torch.as_tensor(300.0 + 900.0 * gen.random(fes.nscalar), device=dev)
+    p = torch.as_tensor(1e5 * (1.0 + gen.random(fes.nscalar)), device=dev)
+    X = AblationState.initial(sys_.ne, sys_.nq, sys_.mat, device=dev).extent
+    saved = {"y": dn.to_dist2(T, p),
+             "To": dn.pack_elem(ops.values_at_qp(T), "dup"),
+             "po": dn.pack_elem(ops.values_at_qp(p), "dup"),
+             "Xo": dn.pack_elem(X + 0.5, "dup")}
+    save_sharded(ckpt, 15, 1.5, saved)
+    step, t, loaded = load_sharded(ckpt, device=dev)
+    out.update(rank=mesh.rank, device=str(dev), step=step, time=t,
+               equal={k: bool(torch.equal(v, loaded[k]))
+                      and loaded[k].device == v.device
+                      for k, v in saved.items()},
+               dryrun_s=t1 - t0, checkpoint_s=time.perf_counter() - t1)
+    return out
+
+
+def run_ablation_gloo_on_card(device, tmp, world=2, timeout=180):
+    """Phase 15c: ``world`` gloo ranks on the one card (only all_reduce and
+    all_gather run: gloo carries them on CUDA tensors) through
+    ``ablation_gloo_rank``: the dry run's ablation sections (two
+    element-sharded iterates, the DOF-partitioned one against them, the
+    case-2.2 iterate on a receded mesh, to 1e-6) and the checkpoint round
+    trip, bit for bit; then loading the checkpoint in this process (world
+    size 1) must be refused in the words "world size".  Any error fails
+    the phase."""
+    from cmfem_tpu_torch.io.checkpoint import load_sharded
+    from cmfem_tpu_torch.parallel import spawn_ranks
+
+    kind = torch.device(device).type
+    ckpt = os.path.join(tmp, "ckpt15c")
+    ranks, secs = timed(lambda: spawn_ranks(
+        ablation_gloo_rank, world, (world, kind, ckpt), device=device,
+        backend="gloo", timeout=timeout))
+    try:
+        load_sharded(ckpt)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    d0 = ranks[0]["dryrun"]
+    rec = {"world": world, "devices": [r["device"] for r in ranks],
+           "spawn_s": secs, "dryrun_s": ranks[0]["dryrun_s"],
+           "checkpoint_s": ranks[0]["checkpoint_s"], "dryrun": d0,
+           "checkpoint_equal": [r["equal"] for r in ranks],
+           "checkpoint_step_time": [ranks[0]["step"], ranks[0]["time"]],
+           "world_size_refusal": refused}
+    log(f"phase 15c: {world} gloo ranks on {rec['devices']}: sharded "
+        f"|R| {d0['ablation_sharded_r0']:.4e} -> "
+        f"{d0['ablation_sharded_r1']:.4e}; DOF-partitioned vs sharded "
+        f"{d0['ablation_dofpart_rel']:.3e}, case 2.2 "
+        f"{d0['ablation_case22_rel']:.3e} (tol 1e-6); checkpoint round trip "
+        f"bit for bit {rec['checkpoint_equal']}; world size 1 refused: "
+        f"{refused!r}; {secs:.1f} s (dry run {rec['dryrun_s']:.1f} s, "
+        f"checkpoint {rec['checkpoint_s']:.1f} s in the ranks)")
+    assert all(r["dryrun"] == d0 for r in ranks), ranks
+    assert all(all(r["equal"].values()) for r in ranks), ranks
+    assert all((r["step"], r["time"]) == (15, 1.5) for r in ranks)
+    assert refused is not None and "world size" in refused, refused
+    return rec
 
 
 def main():
@@ -2722,6 +3129,26 @@ def main():
     log(f"phase 14: {t14:.1f} s (budget 40 s): 14a {t14a:.1f} s, 14b "
         f"{t14b:.1f} s, 14c {t14 - t14a - t14b:.1f} s")
 
+    # -- 15. slice 12: the distributed ablation Newton ------------------------
+    # 15c's two gloo ranks start (imports, CUDA contexts) and run beside
+    # 15a/15b, whose loops are host-bound on one core of the eight
+    t15 = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        gloo15 = pool.submit(run_ablation_gloo_on_card, dev, tmp)
+        dist_ablation = run_distributed_ablation(
+            dev, tmp, ablation[0]["first_step"],
+            ablation22[0]["first_step"])
+        t15ab = time.perf_counter() - t15
+        dist_ablation["15c_gloo_on_card"] = gloo15.result()
+    # no kernel lies on these paths
+    assert not any(counts().values()), counts()
+    dist_ablation["card"] = smi
+    t15 = time.perf_counter() - t15
+    log(f"phase 15: {t15:.1f} s (budget 40 s): 15a+15b {t15ab:.1f} s, 15c "
+        f"{dist_ablation['15c_gloo_on_card']['spawn_s']:.1f} s beside them")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
@@ -2746,6 +3173,7 @@ def main():
     log(json.dumps({"ablation_case2_2": ablation22}))
     log(json.dumps({"linemg": linemg, "distributed": distributed,
                     "gloo_on_card": gloo_on_card}))
+    log(json.dumps({"distributed_ablation": dist_ablation}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,

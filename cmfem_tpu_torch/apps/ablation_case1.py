@@ -21,11 +21,13 @@ and ParaView fields including per-reaction extents.
 
 Case 1 runs in float64 only (the equilibrated Jacobian's condition number
 is ~1e15); the JAX package's float32 stall machinery is kept in the Newton
-loops, but no float32 run is offered.  ``sharding_devices`` and
-``dof_partition`` belong to the distributed slice and raise.  ``run``
-returns the JAX driver's keys plus ``converged``, ``timing`` (per step:
-residual, jacobian, factorization, linear, update, state, output, total
-seconds) and ``newton_iters`` (linear solves per step).
+loops, but no float32 run is offered.  ``sharding_devices: N`` and
+``dof_partition: N`` run the eager loop on every rank of a world of N with
+the Newton iterate distributed (``apps.distributed``; rank 0 writes the
+files).  ``run`` returns the JAX driver's keys plus ``converged``,
+``timing`` (per step: residual, jacobian, factorization, linear, update,
+state, output, total seconds) and ``newton_iters`` (linear solves per
+step).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from .common import (
     parse_args, replay_newton_history, resolve_device, device_from_env,
     run_tp_newton_loop, scan_newton, NewtonStallStats,
 )
-from ..io import CsvWriter, VTUCollection
+from .distributed import DistributedNewton, run_on_ranks
+from ..io import CsvWriter, VTUCollection, writes_files
 from ..utils.timing import StepTimer
 from ..utils.yamlcfg import load_yaml, resolve_path
 
@@ -220,7 +223,7 @@ class Case1:
         self._make_csvs()
         self.dc = VTUCollection(self.collection_name, fes,
                                 prefix_path=self.output_path) \
-            if self.save_paraview else None
+            if self.save_paraview and writes_files() else None
 
     # -- the case-specific pieces ------------------------------------------
 
@@ -375,13 +378,18 @@ class Case1:
 
 def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     device = resolve_device(device)
-    if int(cfg.get("sharding_devices", 0)) or int(cfg.get("dof_partition", 0)):
-        raise NotImplementedError(
-            "sharding_devices / dof_partition belong to the distributed "
-            "slice (slice 4), which is not ported yet: ROADMAP queue A "
-            "item 18")
     if cfg.get("scan_stepping", False):
+        if int(cfg.get("sharding_devices", 0)) or \
+                int(cfg.get("dof_partition", 0)):
+            raise ValueError("scan_stepping is mutually exclusive with "
+                             "sharding_devices / dof_partition")
         return run_scan(cfg, device=device, dtype=dtype)
+    return run_on_ranks(__name__, _run, cfg, device, dtype)
+
+
+def _run(cfg, device, dtype, option=None, nranks=0):
+    """The eager path: the host loop of one process, or of one rank of a
+    world of ``nranks`` (``option``: ``apps.distributed``)."""
     run_t0 = _time.perf_counter()
     c = Case1(cfg, device, dtype)
     sys_, ops, n = c.sys, c.ops, c.n
@@ -392,12 +400,28 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
     jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
 
-    iter_factory = make_block_linear_solver(
-        cfg, c.fes.element_dofs, n, c.ess, c.ess,
-        node_positions=c.fes.node_positions, device=device)
+    dn = inst = None
+    if nranks:
+        # the Newton iterate distributed over the world; the step's
+        # old-state slabs are taken at each step start
+        iter_factory = dn = DistributedNewton(option, nranks, sys_, c.ess,
+                                              c.ess, cfg, device)
+        inst = dn.get()
+    else:
+        iter_factory = make_block_linear_solver(
+            cfg, c.fes.element_dofs, n, c.ess, c.ess,
+            node_positions=c.fes.node_positions, device=device)
     timer = StepTimer(sync=device_sync(device))
 
+    def residual(T, p, T_old_q, p_old_q, X_old, dt):
+        if dn is not None:
+            return dn.residual(inst, T, p, dt)
+        return c.residual(T, p, T_old_q, p_old_q, X_old, dt)
+
     def factorize(T, p, T_old_q, p_old_q, X_old, dt):
+        if dn is not None:
+            with timer.phase("jacobian"):
+                return dn.factorize(inst, T, p, dt)
         with timer.phase("jacobian"):
             blocks = sys_.element_jacobians(T, p, T_old_q, p_old_q, X_old,
                                             dt)
@@ -422,10 +446,12 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
         t_next = min(c.t_final, t + c.dt)
         dt_step = t_next - t
         t = t_next
+        X_old = state.extent
         with timer.phase("state"):
             T_old_q = ops.values_at_qp(T)
             p_old_q = ops.values_at_qp(p)
-        X_old = state.extent
+            if dn is not None:
+                dn.set_step(inst, T_old_q, p_old_q, X_old)
         with timer.phase("bc"):
             Tbc = evaluate_schedule(c.schedule, t)
             T, p = c.enforce_bc(T, p, Tbc)
@@ -438,8 +464,8 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
         nsolve0 = len(iter_factory.results) if iter_factory else 0
         T, p, iters, ntim = run_tp_newton_loop(
             T, p,
-            residual=lambda T, p: c.residual(T, p, T_old_q, p_old_q, X_old,
-                                             dt_step),
+            residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X_old,
+                                           dt_step),
             factorize=lambda T, p: factorize(T, p, T_old_q, p_old_q, X_old,
                                              dt_step),
             enforce_bc=lambda T, p: c.enforce_bc(T, p, Tbc),

@@ -35,13 +35,15 @@ table with the right shape is substituted, as in the JAX driver
   so no segmentation at branch changes is needed, and restart triggers
   land on their exact steps.
 
-Float64 only.  ``sharding_devices`` and ``dof_partition`` belong to the
-distributed slice and raise.  ``run`` returns the JAX driver's keys plus
-``converged``, ``timing`` (per step: residual and jacobian with the SEB
-face terms inside, factorization, linear, update, state, output, total
-seconds), ``newton_iters`` (linear solves per step) and, with
-``jacobian_check``, its results (``"domain"`` and each flux branch: the
-max relative error, None where the check was skipped).
+Float64 only. ``sharding_devices: N`` and ``dof_partition: N`` run the eager
+loop on every rank of a world of N with the Newton iterate distributed, one
+instance per flux branch (``apps.distributed``; rank 0 writes the files);
+``scan_stepping`` refuses them. ``run`` returns the JAX driver's keys plus
+``converged``, ``timing`` (per step: residual and jacobian with the SEB face
+terms inside, factorization, linear, update, state, output, total seconds),
+``newton_iters`` (linear solves per step) and, with ``jacobian_check``, its
+results (``"domain"`` and each flux branch: the max relative error, None
+where the check was skipped).
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ from .common import (
     replay_newton_history, resolve_device, run_tp_newton_loop, scan_newton,
     NewtonStallStats,
 )
-from ..io import CsvWriter
+from .distributed import DistributedNewton, run_on_ranks
+from ..io import CsvWriter, writes_files
 from ..utils.timing import StepTimer
 from ..utils.yamlcfg import load_yaml, resolve_path
 
@@ -72,9 +75,12 @@ RESTART_TIME_TOL = 1e-12
 
 def save_restart(path, step, time, T, p, extent, world_size=1,
                  elem_order="file"):
-    """Write a checkpoint (numpy arrays or tensors on any device)."""
+    """Write a checkpoint (numpy arrays or tensors on any device); a rank
+    that writes no files (``io.output``) writes nothing."""
     host = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) \
         else np.asarray(a)
+    if not writes_files():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, magic=np.uint64(RESTART_MAGIC),
              version=np.uint32(RESTART_VERSION),
@@ -393,19 +399,16 @@ class Case21(Case1):
         return write, end
 
 
-def _check_options(cfg):
-    if int(cfg.get("sharding_devices", 0)) or int(cfg.get("dof_partition", 0)):
-        raise NotImplementedError(
-            "sharding_devices / dof_partition belong to the distributed "
-            "slice (slice 4), which is not ported yet: ROADMAP queue A "
-            "item 18")
-
-
 def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     device = resolve_device(device)
-    _check_options(cfg)
     if cfg.get("scan_stepping", False):
         return run_scan(cfg, device=device, dtype=dtype)
+    return run_on_ranks(__name__, _run, cfg, device, dtype)
+
+
+def _run(cfg, device, dtype, option=None, nranks=0):
+    """The eager path: the host loop of one process, or of one rank of a
+    world of ``nranks`` (``option``: ``apps.distributed``)."""
     run_t0 = _time.perf_counter()
     c = Case21(cfg, device, dtype)
     sys_, ops, n = c.sys, c.ops, c.n
@@ -416,12 +419,36 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
     jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
 
-    iter_factory = make_block_linear_solver(
-        cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
-        node_positions=c.fes.node_positions, device=device)
+    dn = None
+    if nranks:
+        # one distributed Newton instance per flux branch (the branch
+        # changes the face residual), keyed "dirichlet" under a Dirichlet
+        # top; the step's old-state slabs are taken at each step start
+        iter_factory = dn = DistributedNewton(option, nranks, sys_, c.ess_T,
+                                              c.ess, cfg, device)
+    else:
+        iter_factory = make_block_linear_solver(
+            cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
+            node_positions=c.fes.node_positions, device=device)
     timer = StepTimer(sync=device_sync(device))
 
+    def newton_inst(branch):
+        if c.use_dirichlet:
+            return dn.get("dirichlet")
+        return dn.get(branch, seb=c.seb(branch))
+
+    face_bc = lambda bc: None if c.use_dirichlet else bc
+
+    def residual(T, p, T_old_q, p_old_q, X_old, dt, bc, branch):
+        if dn is not None:
+            return dn.residual(newton_inst(branch), T, p, dt, bc=face_bc(bc))
+        return c.residual(T, p, T_old_q, p_old_q, X_old, dt, bc, branch)
+
     def factorize(T, p, T_old_q, p_old_q, X_old, dt, bc, branch):
+        if dn is not None:
+            with timer.phase("jacobian"):
+                return dn.factorize(newton_inst(branch), T, p, dt,
+                                    bc=face_bc(bc))
         with timer.phase("jacobian"):
             blocks = sys_.element_jacobians(T, p, T_old_q, p_old_q, X_old,
                                             dt)
@@ -464,6 +491,9 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
         with timer.phase("bc"):
             bc, branch = c.boundary(t)
             T, p = c.enforce_bc(T, p, bc, t)
+        if dn is not None:
+            with timer.phase("state"):
+                dn.set_step(newton_inst(branch), T_old_q, p_old_q, X_old)
 
         if jacobian_check and step == 1:
             rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
@@ -489,8 +519,8 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
         nsolve0 = len(iter_factory.results) if iter_factory else 0
         T, p, iters, ntim = run_tp_newton_loop(
             T, p,
-            residual=lambda T, p: c.residual(T, p, T_old_q, p_old_q, X_old,
-                                             dt_step, bc, branch),
+            residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X_old,
+                                           dt_step, bc, branch),
             factorize=lambda T, p: factorize(T, p, T_old_q, p_old_q, X_old,
                                              dt_step, bc, branch),
             enforce_bc=lambda T, p: c.enforce_bc(T, p, bc, t),
@@ -544,9 +574,12 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
     from ..solvers.blocksolve import make_scan_block_solver
 
     device = resolve_device(device)
-    _check_options(cfg)
     if int(cfg.get("order", 1)) != 1:
         raise NotImplementedError("scan_stepping requires order 1")
+    if int(cfg.get("sharding_devices", 0)) or int(cfg.get("dof_partition", 0)):
+        raise NotImplementedError(
+            "scan_stepping is mutually exclusive with sharding_devices / "
+            "dof_partition")
     if bool(cfg.get("jacobian_check", False)):
         raise NotImplementedError(
             "jacobian_check is host-side; use the eager path")

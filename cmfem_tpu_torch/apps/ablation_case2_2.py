@@ -35,12 +35,17 @@ package's keys and dtypes, so each package reads the other's checkpoints.
   branches on one read-back of max(v_rec) dt > 1e-16, and the diagnostics
   are read back once per output frame.
 
-Float64 only.  ``sharding_devices`` and ``dof_partition`` belong to the
-distributed slice and raise.  ``run`` returns the JAX driver's keys plus
-``step``, ``converged``, ``timing`` (per step: recession, which the CSV's
-bc_sec includes, then residual, jacobian, factorization, linear, update,
-state, output, total seconds), ``newton_iters``, ``moved`` (per step:
-whether the mesh moved) and, with ``jacobian_check``, its results.
+Float64 only. ``sharding_devices: N`` and ``dof_partition: N`` run the eager
+loop on every rank of a world of N with the Newton iterate distributed
+(``apps.distributed``; rank 0 writes the files), one instance per flux
+branch whose geometry is refreshed after every mesh move; in a spawned world
+the returned ``handler`` is None and tensors come back as numpy arrays. ``scan_stepping`` refuses both (the JAX
+scan path refuses ``sharding_devices`` only and runs a ``dof_partition`` run
+on one device). ``run`` returns the JAX driver's keys plus ``step``,
+``converged``, ``timing`` (per step: recession, which the CSV's bc_sec
+includes, then residual, jacobian, factorization, linear, update, state,
+output, total seconds), ``newton_iters``, ``moved`` (per step: whether the
+mesh moved) and, with ``jacobian_check``, its results.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ import torch
 
 from .ablation_case1 import TIMING_KEYS
 from .ablation_case2_1 import (
-    RESTART_MAGIC, RESTART_TIME_TOL, Case21, _check_options,
+    RESTART_MAGIC, RESTART_TIME_TOL, Case21,
     load_bprime_table,
 )
 from .common import (
@@ -68,7 +73,8 @@ from .common import (
 )
 from ..core.tracksample import (TrackedSampler, front_depth_from_samples,
                                 line_points)
-from ..io import CsvWriter
+from .distributed import DistributedNewton, run_on_ranks
+from ..io import CsvWriter, writes_files
 from ..motion.recession import (LaplacianSmoother, MeshRecessionHandler,
                                 min_quality, quality_tables)
 from ..motion.remap import make_scan_remap, remap_extents_ale
@@ -97,7 +103,10 @@ def _host(a):
 def save_restart_ale(path, step, time, T, p, extent, vertices,
                      recession_total, recession_history, world_size=1,
                      elem_order="file"):
-    """Write an ALE checkpoint (numpy arrays or tensors on any device)."""
+    """Write an ALE checkpoint (numpy arrays or tensors on any device); a
+    rank that writes no files (``io.output``) writes nothing."""
+    if not writes_files():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, magic=np.uint64(RESTART_MAGIC),
              version=np.uint32(RESTART_VERSION_ALE),
@@ -478,9 +487,14 @@ class Case22(Case21):
 
 def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     device = resolve_device(device)
-    _check_options(cfg)
     if cfg.get("scan_stepping", False):
         return run_scan(cfg, device=device, dtype=dtype)
+    return run_on_ranks(__name__, _run, cfg, device, dtype)
+
+
+def _run(cfg, device, dtype, option=None, nranks=0):
+    """The eager path: the host loop of one process, or of one rank of a
+    world of ``nranks`` (``option``: ``apps.distributed``)."""
     run_t0 = _time.perf_counter()
     c = Case22(cfg, device, dtype)
     sys_, ops, n = c.sys, c.ops, c.n
@@ -492,12 +506,31 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
     rec = c.make_handler()
 
-    iter_factory = make_block_linear_solver(
-        cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
-        node_positions=c.fes.node_positions, device=device)
+    dn = None
+    if nranks:
+        # one distributed Newton instance per flux branch; the current
+        # one takes the moved geometry and the step's slabs each step
+        iter_factory = dn = DistributedNewton(
+            option, nranks, sys_, c.ess_T, c.ess, cfg, device,
+            ale_toggles=c.ale_toggles, gcl_enabled=c.gcl_enabled)
+    else:
+        iter_factory = make_block_linear_solver(
+            cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
+            node_positions=c.fes.node_positions, device=device)
     timer = StepTimer(sync=device_sync(device))
+    newton_inst = lambda branch: dn.get(branch, seb=c.seb(branch))
+
+    def residual(T, p, *args):
+        if dn is not None:
+            dt, bc, branch = args[3:6]
+            return dn.residual(newton_inst(branch), T, p, dt, bc=bc)
+        return c.residual(T, p, *args)
 
     def factorize(T, p, *args):
+        if dn is not None:
+            dt, bc, branch = args[3:6]
+            with timer.phase("jacobian"):
+                return dn.factorize(newton_inst(branch), T, p, dt, bc=bc)
         with timer.phase("jacobian"):
             blocks, face = c.jacobians(T, p, *args)
         with timer.phase("factorization"):
@@ -560,10 +593,15 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
                 wq = rec.mesh_velocity_at_qp(ops)
             moved.append(rec is not None and out["delta_recession"] > 0)
             g = c.geometry(ops._vertices(c.vertices()), wq, J_old)
+        X_old = state.extent
         with timer.phase("state"):
             T_old_q = ops.values_at_qp(T)
             p_old_q = ops.values_at_qp(p)
-        X_old = state.extent
+            if dn is not None:
+                inst = newton_inst(branch)
+                inst.update_geometry(g.verts)
+                dn.set_step(inst, T_old_q, p_old_q, X_old, wq=g.wq,
+                            gcl=g.gcl)
         with timer.phase("bc"):
             T, p = c.enforce_bc(T, p, bc, t)
         args = (T_old_q, p_old_q, X_old, dt_step, bc, branch, g)
@@ -594,7 +632,7 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
         nsolve0 = len(iter_factory.results) if iter_factory else 0
         T, p, iters, ntim = run_tp_newton_loop(
             T, p,
-            residual=lambda T, p: c.residual(T, p, *args),
+            residual=lambda T, p: residual(T, p, *args),
             factorize=lambda T, p: factorize(T, p, *args),
             enforce_bc=lambda T, p: c.enforce_bc(T, p, bc, t),
             newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
@@ -786,9 +824,16 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
     from ..solvers.blocksolve import make_scan_block_solver
 
     device = resolve_device(device)
-    _check_options(cfg)
     if int(cfg.get("order", 1)) != 1:
         raise NotImplementedError("scan_stepping requires order 1")
+    if int(cfg.get("sharding_devices", 0)):
+        raise NotImplementedError(
+            "scan_stepping and sharding_devices are mutually exclusive")
+    if int(cfg.get("dof_partition", 0)):
+        # the JAX scan path ignores this option and runs on one device;
+        # a run on fewer ranks than asked is refused here instead
+        raise NotImplementedError(
+            "scan_stepping and dof_partition are mutually exclusive")
     if cfg.get("restart_read_file", "") or cfg.get("restart_write_file", ""):
         raise NotImplementedError(
             "scan_stepping does not support restart I/O; use the eager path")

@@ -19,6 +19,7 @@ import torch
 
 from .. import require_cuda
 from ..core import load_gmsh, Mesh
+from ..io import writes_files
 from ..utils.yamlcfg import resolve_path
 
 
@@ -100,7 +101,10 @@ def echo_config(cfg_obj, title="Loaded configuration:"):
 
 
 def ensure_outdir(path: str):
-    os.makedirs(path, exist_ok=True)
+    """Create the output directory (on a rank that writes files:
+    ``io.output``)."""
+    if writes_files():
+        os.makedirs(path, exist_ok=True)
     return path
 
 

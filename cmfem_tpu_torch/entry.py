@@ -35,13 +35,15 @@ apply of the same lattice-numbered vector (the timing lives in
 unchanged; their steps go through the z-chain with
 ``step.solve(u0, *op.bind_zchain(...))``.
 
-The distributed operator layer, ``dryrun_multichip(n_devices)``: the
-counterpart of ``__graft_entry__.dryrun_multichip`` without its ablation
-sections (they come with the distributed ablation Newton): an implicit CDR
-step through ``ShardedPoissonApply`` and CG, a Jacobi-CG solve on
-``DofPartitionedOperator`` against the single-device PA solve, and the
-z-split sum-factorized apply against ``SumFactoredOperator``.  On the CPU
-it spawns ``n_devices`` gloo ranks; on the card one NCCL rank per card.
+The distributed layer, ``dryrun_multichip(n_devices)``: the counterpart
+of ``__graft_entry__.dryrun_multichip``: an implicit CDR step through
+``ShardedPoissonApply`` and CG, a Jacobi-CG solve on
+``DofPartitionedOperator`` against the single-device PA solve, the z-split
+sum-factorized apply against ``SumFactoredOperator``, and the ablation
+sections (``dryrun_ablation_rank``: the element-sharded and the
+DOF-partitioned ablation Newton, static and on a receded case-2.2 mesh).
+On the CPU it spawns ``n_devices`` gloo ranks; on the card one NCCL rank
+per card.
 """
 
 from __future__ import annotations
@@ -430,6 +432,124 @@ def dryrun_rank(n_devices: int, device: str) -> dict:
         raise RuntimeError(f"dryrun_multichip: z-split apply is {err:.3e} "
                            "from the single-device apply")
     out.update(sumfact_ndofs=refop.ndofs, sumfact_rel=err)
+    out.update(dryrun_ablation_rank(n_devices, device))
+    return out
+
+
+TACOT_DECK = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "fixtures", "tacot_synthetic.json")
+
+
+def _rel_max(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def dryrun_ablation_rank(n_devices: int, device, deck: str = TACOT_DECK):
+    """The ablation sections of ``dryrun_multichip``, on this rank of a
+    world of ``n_devices`` (float64; the JAX package's dry run skips them
+    off the CPU, since the TPU has no float64): on a 2 x ``n_devices`` strip
+    of the TACOT deck ``deck`` (the repo's synthetic one by default) with
+    the wall at 900 K,
+
+    - two ``ShardedAblationNewton`` iterates: the residual norm falls;
+    - one ``DofPartitionedAblationNewton`` iterate from the same state,
+      equal to the first element-sharded one to 1e-6 relative, with fewer
+      floats per rank than the replicated vectors (from three ranks on: on
+      two, the 2 x 2 strip's halo row makes the layouts equal);
+    - a case-2.2 iterate on a receded mesh with an ALE mesh velocity and
+      SEB faces (synthetic B' table), DOF-partitioned against
+      element-sharded, to 1e-6 (iterate and residual norm).
+
+    Only ``all_reduce`` and ``all_gather`` run: gloo carries it on CUDA
+    tensors.  Returns the record of this rank."""
+    from .core import make_cartesian_mesh_2d
+    from .parallel import (DofPartitionedAblationNewton,
+                           ShardedAblationNewton, make_device_mesh)
+    from .physics.ablation import AblationState, AblationSystem
+    from .physics.bprime import BPrimeTable
+    from .physics.seb import SurfaceFluxModel, classify_branch
+    from .physics.surface_bc import BoundaryState
+    from .physics.tacot import TacotMaterial
+
+    mesh = make_device_mesh(n_devices, device=device)
+    dev, f64 = mesh.device, torch.float64
+    amesh = make_cartesian_mesh_2d(2, n_devices, sx=0.0025, sy=0.05)
+    afes = FESpace(amesh, 1)
+    an = afes.nscalar
+    aops = SpaceOps(afes, quad_order=4, device=dev, dtype=f64)
+    asys = AblationSystem(aops, TacotMaterial.load_yaml(deck), top_attr=3)
+    astate = AblationState.initial(asys.ne, asys.nq, asys.mat, device=dev)
+    ess = np.asarray(afes.boundary_dofs([3]))
+    ess_t = torch.as_tensor(ess, device=dev)
+    T = torch.full((an,), 300.0, dtype=f64, device=dev)
+    T[ess_t] = 900.0
+    p = torch.full((an,), 101325.0, dtype=f64, device=dev)
+    To_q = aops.values_at_qp(torch.full_like(T, 300.0))
+    po_q = aops.values_at_qp(p)
+    out = {"ablation_dofs": 2 * an}
+
+    # the element-sharded Newton iterate, twice
+    sh = ShardedAblationNewton(asys, mesh, ess, ess, restart=100,
+                               maxiter=10)
+    To, po, Xo = (sh.pad_elem(a) for a in (To_q, po_q, astate.extent))
+    T1, p1, r0, _ = sh.newton_step(T, p, To, po, Xo, 0.05, rtol=1e-10)
+    _, _, r1, _ = sh.newton_step(T1, p1, To, po, Xo, 0.05, rtol=1e-10)
+    r0, r1 = float(r0), float(r1)
+    if not (math.isfinite(r0) and math.isfinite(r1) and r1 < r0):
+        raise RuntimeError(f"dryrun_multichip: the sharded ablation Newton "
+                           f"does not converge (|R0| {r0:.3e}, |R1| "
+                           f"{r1:.3e})")
+    out.update(ablation_sharded_r0=r0, ablation_sharded_r1=r1)
+
+    # the DOF-partitioned iterate against it
+    dn = DofPartitionedAblationNewton(asys, mesh, ess, ess, restart=100,
+                                      maxiter=10)
+    Tod, pod, Xod = (dn.pack_elem(a, "dup")
+                     for a in (To_q, po_q, astate.extent))
+    y1, _, _ = dn.newton_step(dn.to_dist2(T, p), Tod, pod, Xod, 0.05,
+                              rtol=1e-10)
+    T1d, p1d = dn.gather2(y1)
+    rel = max(_rel_max(T1d, T1), _rel_max(p1d, p1))
+    floats = dn.per_device_floats()
+    if not rel < 1e-6 or (mesh.size > 2 and not floats < 2 * an):
+        raise RuntimeError(f"dryrun_multichip: the DOF-partitioned ablation "
+                           f"iterate is {rel:.3e} from the element-sharded "
+                           f"one ({floats} floats per rank, {2 * an} "
+                           f"replicated)")
+    out.update(ablation_dofpart_rel=rel, ablation_per_device_floats=floats)
+
+    # the case-2.2 iterate: receded vertices, ALE mesh velocity, SEB faces
+    model = SurfaceFluxModel(case22=True)
+    bcs = BoundaryState(p_w=101325.0, rhoeUeCH=0.3, h_r=1.5e6, hconv=0.0,
+                        Tedge=300.0, has_hconv=False, has_Tedge=False,
+                        chemistryOn=1)
+    seb = (classify_branch(bcs, model), model, BPrimeTable.synthetic_tacot())
+    verts1 = np.asarray(amesh.vertices, dtype=np.float64).copy()
+    verts1[:, 1] *= 1.0 - 0.02 * (verts1[:, 1] / verts1[:, 1].max())
+    verts1 = torch.as_tensor(verts1, device=dev)
+    wq = torch.zeros((asys.ne, asys.nq, 2), dtype=f64, device=dev)
+    wq[:, :, 1] = -1e-5
+    no_T = np.zeros(0, dtype=np.int64)
+    sh22 = ShardedAblationNewton(asys, mesh, no_T, ess, restart=100,
+                                 maxiter=10, seb=seb)
+    sh22.update_geometry(verts1)
+    dn22 = DofPartitionedAblationNewton(asys, mesh, no_T, ess, restart=100,
+                                        maxiter=10, seb=seb)
+    dn22.update_geometry(verts1)
+    T1s, p1s, rs0, _ = sh22.newton_step(T, p, To, po, Xo, 0.05, rtol=1e-10,
+                                        bc=bcs, wq=sh22.pad_elem(wq))
+    y1d, rd0, _ = dn22.newton_step(dn22.to_dist2(T, p), Tod, pod, Xod, 0.05,
+                                   rtol=1e-10, bc=bcs,
+                                   wq=dn22.pack_elem(wq, "zero"))
+    T2d, p2d = dn22.gather2(y1d)
+    rel2 = max(_rel_max(T2d, T1s), _rel_max(p2d, p1s))
+    dr = abs(float(rs0) - float(rd0)) / float(rs0)
+    if not (rel2 < 1e-6 and dr <= 1e-6):
+        raise RuntimeError(f"dryrun_multichip: the case-2.2 DOF-partitioned "
+                           f"iterate is {rel2:.3e} from the element-sharded "
+                           f"one (|R0| {dr:.3e} apart)")
+    out.update(ablation_case22_rel=rel2, ablation_case22_r0=float(rs0),
+               ablation_case22_r0_rel=dr)
     return out
 
 

@@ -7,13 +7,22 @@ from __future__ import annotations
 
 import os
 
+from .output import writes_files
+
 
 class CsvWriter:
+    """A CSV stream; on a rank that writes no files (``io.output``) the
+    rows go to ``os.devnull``."""
+
     def __init__(self, path, header: list[str], precision: int = 16):
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self.path = path
         self.precision = precision
-        self.f = open(path, "w")
+        if writes_files():
+            os.makedirs(os.path.dirname(os.path.abspath(path)),
+                        exist_ok=True)
+            self.f = open(path, "w")
+        else:
+            self.f = open(os.devnull, "w")
         self.f.write(",".join(header) + "\n")
         self.f.flush()
 

@@ -3,7 +3,7 @@
 Port of ``cmfem_tpu/solvers/krylov.py`` with unchanged semantics.  Each
 ``lax.while_loop``/``lax.cond`` becomes a host loop or ``if``, so every
 convergence test is one device-to-host sync.  GMRES keeps its small
-Hessenberg/Givens state (R, g, cs, sn) in host tensors of the working
+Hessenberg/Givens state (R, g, cs, sn) in host numpy arrays of the working
 dtype; the Krylov basis and all length-n vectors stay on b's device.
 """
 
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -136,66 +137,90 @@ def cg(apply_A: Callable, b, x0=None, M: Callable | None = None,
 
 
 def gmres(apply_A: Callable, b, x0=None, M: Callable | None = None,
-          rtol=1e-12, atol=0.0, restart=50, maxiter=20) -> SolveResult:
+          rtol=1e-12, atol=0.0, restart=50, maxiter=20,
+          reduce: Callable | None = None) -> SolveResult:
     """Restarted GMRES(m) with left preconditioning.
 
     maxiter counts outer restarts; total Krylov iterations <= restart*maxiter.
     As ``cmfem_tpu.solvers.krylov.gmres``: progressive Givens QR (so
     post-breakdown noise columns never enter the triangular solve), the
     tolerance clamped at 16 eps |M b| (the working-precision floor), and
-    an exit when a full cycle improves the true residual by < 10%."""
+    an exit when a full cycle improves the true residual by < 10%.
+
+    ``reduce`` sums a tensor of partial sums over the ranks (for example
+    ``DeviceMesh.all_reduce``): vectors that are slabs of a distributed
+    layout pass it, and every inner product and norm becomes the sum of
+    the ranks' local ones.  Each Gram-Schmidt pass reduces its
+    ``restart + 1`` products in one call, and each norm in one more, so
+    that every rank takes the same decisions (a deviation: the JAX
+    package's reductions are global by construction).  Without it the
+    vectors are whole and the reductions local, as before."""
     n = b.shape[0]
     dtype, dev = b.dtype, b.device
     host = dict(dtype=dtype, device="cpu")
     tiny = torch.finfo(dtype).tiny
     x0 = torch.zeros_like(b) if x0 is None else x0.to(dtype)
     M = M or _identity
+    if reduce is None:
+        norm, project = torch.linalg.vector_norm, torch.matmul
+    else:
+        norm = lambda v: torch.sqrt(reduce(torch.dot(v, v)))
+        project = lambda V, w: reduce(V @ w)
 
-    bnorm = torch.linalg.vector_norm(M(b))
+    bnorm = norm(M(b))
     eps = torch.finfo(dtype).eps
     tol = torch.maximum(torch.clamp(rtol * bnorm, min=atol),
                         16.0 * eps * bnorm).cpu()
     m = restart
 
+    npdt = torch.empty((), dtype=dtype).numpy().dtype
+    tol_h = tol.numpy()
+
     def restart_cycle(x, r):
-        beta = torch.linalg.vector_norm(r)
+        beta = norm(r)
         V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
         V[0] = torch.where(beta > tiny, r / beta, r)
-        R = torch.zeros((m + 1, m), **host)
-        g = torch.zeros(m + 1, **host)
-        g[0] = beta.cpu()
-        cs = torch.zeros(m, **host)
-        sn = torch.zeros(m, **host)
-        j, res = 0, g[0].clone()
-        while j < m and bool(res > tol):
+        # the Givens state in numpy scalars of the working dtype: the same
+        # IEEE products and sums as torch's, at a fraction of the host cost
+        # of 0-d tensor ops
+        R = np.zeros((m + 1, m), dtype=npdt)
+        g = np.zeros(m + 1, dtype=npdt)
+        g[0] = beta.cpu().numpy()
+        cs = np.zeros(m, dtype=npdt)
+        sn = np.zeros(m, dtype=npdt)
+        j, res = 0, g[0]
+        while j < m and res > tol_h:
             w = M(apply_A(V[j]))
             # modified Gram-Schmidt against the masked basis, twice
             mask = (torch.arange(m + 1, device=dev) <= j).to(dtype)
-            h = (V @ w) * mask
+            h = project(V, w) * mask
             w = w - V.T @ h
-            h2 = (V @ w) * mask
+            h2 = project(V, w) * mask
             w = w - V.T @ h2
             h = h + h2
-            hj1 = torch.linalg.vector_norm(w)
+            hj1 = norm(w)
             V[j + 1] = torch.where(hj1 > tiny, w / hj1, torch.zeros_like(w))
-            h = h.cpu()
-            h[j + 1] = hj1.cpu()
+            h = h.cpu().numpy()
+            h[j + 1] = hj1.cpu().numpy()
             # apply the previous rotations to the new column
             for i in range(j):
                 hi = cs[i] * h[i] + sn[i] * h[i + 1]
                 hi1 = -sn[i] * h[i] + cs[i] * h[i + 1]
                 h[i], h[i + 1] = hi, hi1
-            # new rotation annihilating h[j+1]
-            denom = torch.sqrt(h[j] ** 2 + h[j + 1] ** 2)
+            # new rotation annihilating h[j+1], in torch's ops (torch.sqrt
+            # and numpy's differ in the last bit of some values)
+            h0, h1 = torch.from_numpy(h[j:j + 2].copy())
+            denom = torch.sqrt(h0 ** 2 + h1 ** 2)
             ok = bool(denom > tiny)
-            c = h[j] / torch.clamp(denom, min=tiny) if ok else 1.0
-            s = h[j + 1] / torch.clamp(denom, min=tiny) if ok else 0.0
+            c = h0 / torch.clamp(denom, min=tiny) if ok else 1.0
+            s = h1 / torch.clamp(denom, min=tiny) if ok else 0.0
             h[j], h[j + 1] = denom, 0.0
             cs[j], sn[j] = c, s
             R[:, j] = h
-            g[j], g[j + 1] = c * g[j], -s * g[j]
+            g[j], g[j + 1] = cs[j] * g[j], -sn[j] * g[j]
             j += 1
-            res = g[j].abs()
+            res = abs(g[j])
+        R, g = torch.from_numpy(R), torch.from_numpy(g)
         # triangular solve over the j active columns; inactive columns and
         # active ~zero pivots (exact breakdown) get a unit diagonal and a
         # zero rhs so y vanishes there
@@ -208,11 +233,11 @@ def gmres(apply_A: Callable, b, x0=None, M: Callable | None = None,
         # explicit (not Givens-estimated) residual; also the next cycle's
         # starting vector
         r_new = M(b - apply_A(x_new))
-        return x_new, r_new, torch.linalg.vector_norm(r_new).cpu(), j
+        return x_new, r_new, norm(r_new).cpu(), j
 
     r = M(b - apply_A(x0)).to(dtype)
     x = x0
-    res = torch.linalg.vector_norm(r).cpu()
+    res = norm(r).cpu()
     prev = torch.tensor(float("inf"), **host)
     k = ki = 0
     # stop on convergence, the cycle cap, or stagnation (NaN exits too)

@@ -161,9 +161,14 @@ def test_run_refuses_what_it_does_not_do(strip, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.run(cfg)
+    with pytest.raises(ValueError, match="sharding_devices and "
+                       "dof_partition are mutually exclusive"):
+        P.run({**cfg, "sharding_devices": 2, "dof_partition": 2},
+              device="cpu")
     for extra in ({"sharding_devices": 2}, {"dof_partition": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.run({**cfg, **extra}, device="cpu")
+        with pytest.raises(ValueError, match="scan_stepping is mutually "
+                           "exclusive with sharding_devices / dof_partition"):
+            P.run({**cfg, **extra, "scan_stepping": True}, device="cpu")
     with pytest.raises(ValueError, match="float64"):
         P.run(cfg, device="cpu", dtype=torch.float32)
 

@@ -258,8 +258,16 @@ def test_run_refuses_what_it_does_not_do(strip, tmp_path, monkeypatch):
 
     cfg = case22_cfg(strip, tmp_path)
     for extra, err, match in (
-            ({"sharding_devices": 2}, NotImplementedError, "ROADMAP"),
-            ({"dof_partition": 2}, NotImplementedError, "ROADMAP"),
+            ({"sharding_devices": 2, "dof_partition": 2}, ValueError,
+             "sharding_devices and dof_partition are mutually exclusive"),
+            ({"scan_stepping": True, "sharding_devices": 2},
+             NotImplementedError,
+             "scan_stepping and sharding_devices are mutually exclusive"),
+            # the JAX scan path runs this on one device (ROADMAP, known
+            # problem 10): the port refuses it
+            ({"scan_stepping": True, "dof_partition": 2},
+             NotImplementedError,
+             "scan_stepping and dof_partition are mutually exclusive"),
             ({"scan_stepping": True, "order": 2}, NotImplementedError,
              "order 1"),
             ({"scan_stepping": True, "restart_read_file": "x"},

@@ -71,7 +71,17 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.parallel.sharding",
             "cmfem_tpu_torch.parallel.dofpart",
             "cmfem_tpu_torch.parallel.launch",
-            "cmfem_tpu_torch.ops.sumfact_sharded"} <= set(mods)
+            "cmfem_tpu_torch.ops.sumfact_sharded",
+            "cmfem_tpu_torch.parallel.ablation_sharded",
+            "cmfem_tpu_torch.parallel.ablation_dofpart",
+            "cmfem_tpu_torch.io.checkpoint", "cmfem_tpu_torch.io.output",
+            "cmfem_tpu_torch.apps.distributed",
+            "cmfem_tpu_torch.validation.common",
+            "cmfem_tpu_torch.validation.compare_case1",
+            "cmfem_tpu_torch.validation.compare_case2",
+            "cmfem_tpu_torch.validation.compare_qstar",
+            "cmfem_tpu_torch.validation.generate_material",
+            "cmfem_tpu_torch.validation.plots"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"

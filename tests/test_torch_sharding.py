@@ -209,7 +209,28 @@ def test_dryrun_multichip_on_two_cpu_ranks():
         assert r["dofpart_rel"] < 1e-3 and r["sumfact_rel"] < 1e-5
         assert r["per_device_floats"] < r["ndofs"]
         assert np.isfinite(r["step_norm"])
+        # the ablation sections (dryrun_ablation_rank)
+        assert r["ablation_sharded_r1"] < r["ablation_sharded_r0"]
+        assert r["ablation_dofpart_rel"] < 1e-6
+        assert r["ablation_case22_rel"] < 1e-6
+        assert r["ablation_case22_r0_rel"] <= 1e-6
     assert recs[0]["step_norm"] == recs[1]["step_norm"]
+    assert recs[0]["ablation_sharded_r1"] == recs[1]["ablation_sharded_r1"]
+
+
+def test_dryrun_ablation_sections_on_four_cpu_ranks():
+    """The ablation sections alone (``entry.dryrun_ablation_rank``) on four
+    gloo ranks, where the DOF-partitioned layout is smaller than the
+    replicated vectors."""
+    from cmfem_tpu_torch.entry import dryrun_ablation_rank
+    from cmfem_tpu_torch.parallel import spawn_ranks
+
+    recs = spawn_ranks(dryrun_ablation_rank, 4, (4, "cpu"), timeout=120)
+    for r in recs:
+        assert r["ablation_per_device_floats"] < r["ablation_dofs"]
+        assert r["ablation_dofpart_rel"] < 1e-6
+        assert r["ablation_case22_rel"] < 1e-6
+        assert r == recs[0]
 
 
 @pytest.mark.gpu
@@ -224,3 +245,5 @@ def test_cuda_dryrun_multichip_one_nccl_rank():
     assert rec["pa_path"] == "cuda-btdb"
     assert rec["dofpart_rel"] < 1e-3 and rec["sumfact_rel"] < 1e-5
     assert rec["dofpart_iters"] == rec["single_iters"]
+    assert rec["ablation_dofpart_rel"] < 1e-6
+    assert rec["ablation_case22_rel"] < 1e-6

@@ -182,3 +182,129 @@ def hold_to_jax(d_port, d_jax, floor=1e-12, newton_rtol=1e-7,
         hj, b = read_csv(d_jax / name)
         assert hp == hj, name
         csv_close(a, b, name, floor=floor, newton_rtol=newton_rtol)
+
+
+# -- the distributed ablation Newton parity files ----------------------------
+
+BC21 = (101325.0, 0.3, 1.5e6, 10.0, 300.0, True, True, 1)
+BC22 = (101325.0, 0.3, 1.5e6, 0.0, 300.0, False, False, 1)
+
+
+def newton_inputs(tmpdir, nx=3, ny=20, rtol=1e-10):
+    """The JAX pair on an order-1 quad strip and the numpy inputs of
+    ``torch_dist_helpers.ablation_newton_checks``: the pair's state, and
+    three cases, each the Newton system of one class instance:
+
+    - "static": case 1 (T and p essential on the top);
+    - "seb": case 2.1's SEB top (chemistry-blowing branch) with an
+      outflowing gas pressure;
+    - "receded": case 2.2's flux model on the top receded by up to 2%,
+      with a seeded downward mesh velocity at the QPs and a GCL pair
+      (J_old seeded around the receded J_new)."""
+    from cmfem_tpu.physics import seb as JS
+    from cmfem_tpu.physics.surface_bc import BoundaryState
+
+    pair = ablation_pair(tmpdir, nx, ny, 1)
+    jsys = pair["jsys"]
+    fes = pair["fes"]
+    xy = np.asarray(fes.node_positions)
+    top = np.asarray(fes.boundary_dofs([TOP]), dtype=np.int64)
+    none = np.zeros(0, dtype=np.int64)
+    T, p = pair["T"], pair["p"]
+    p_out = 2.0e4 + 4.0e5 * (0.05 - xy[:, 1])
+    verts = np.asarray(fes.mesh.vertices, dtype=np.float64).copy()
+    verts[:, 1] *= 1.0 - 0.02 * (verts[:, 1] / verts[:, 1].max())
+    J_new = np.asarray(jsys.ops.geometric_factors(jnp.asarray(verts)).detJ)
+    rng = np.random.default_rng(11)
+    J_old = J_new * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, J_new.shape))
+    wq = np.zeros(J_new.shape + (2,))
+    wq[..., 1] = -1e-5 * (1.0 + 0.1 * rng.standard_normal(J_new.shape))
+    branch = lambda bc, kw: JS.classify_branch(BoundaryState(*bc),
+                                               JS.SurfaceFluxModel(**kw))
+    case = lambda **kw: {"ess_T": top, "ess_p": top, "T": T, "p": p,
+                         "seb": None, "bc": None, "vertices": None,
+                         "wq": None, "gcl": None, **kw}
+    cases = {
+        "static": case(),
+        "seb": case(ess_T=none, p=p_out, bc=BC21,
+                    seb=(branch(BC21, {}), {})),
+        "receded": case(ess_T=none, bc=BC22,
+                        seb=(branch(BC22, {"case22": True}),
+                             {"case22": True}),
+                        vertices=verts, wq=wq, gcl=(J_old, J_new)),
+    }
+    assert cases["seb"]["seb"][0] == "chemistry_blowing"
+    jgf = jsys.ops.gf
+    _, _, To_q, po_q, X, dt = pair["jargs"]
+    inp = {"strip": strip_file(tmpdir, nx, ny), "deck": FIXTURE, "top": TOP,
+           "gf": tuple(np.asarray(a) for a in (jgf.detJ, jgf.invJ,
+                                               jgf.wdetJ, jgf.xq)),
+           "To_q": np.asarray(To_q), "po_q": np.asarray(po_q),
+           "extent": np.asarray(X), "dt": dt, "rtol": rtol, "cases": cases}
+    return pair, inp
+
+
+def jax_newton(kind, pair, inp, ndev):
+    """``newton_inputs``' cases through the JAX package's class (``kind``:
+    "sharded" or "dofpart") on ``ndev`` virtual CPU devices: the global
+    residual, prepare's factors in the class's global layout, the Newton
+    direction and the GMRES counts."""
+    from cmfem_tpu.parallel import (DofPartitionedAblationNewton,
+                                    ShardedAblationNewton, make_device_mesh)
+    from cmfem_tpu.physics.bprime import BPrimeTable
+    from cmfem_tpu.physics.seb import SurfaceFluxModel
+    from cmfem_tpu.physics.surface_bc import BoundaryState
+
+    jm = make_device_mesh(ndev)
+    jsys = pair["jsys"]
+    out = {}
+    for name, case in inp["cases"].items():
+        seb = None if case["seb"] is None else (
+            case["seb"][0], SurfaceFluxModel(**case["seb"][1]),
+            BPrimeTable.synthetic_tacot())
+        bc = None if case["bc"] is None else BoundaryState(*case["bc"])
+        gcl = case["gcl"]
+        kw = dict(restart=400, maxiter=10, seb=seb)
+        if kind == "sharded":
+            nw = ShardedAblationNewton(jsys, jm, case["ess_T"],
+                                       case["ess_p"], **kw)
+            pack = lambda a, fill="dup": nw.pad_elem(a)
+        else:
+            nw = DofPartitionedAblationNewton(
+                jsys, jm, case["ess_T"], case["ess_p"],
+                gcl_enabled=gcl is not None, **kw)
+            pack = lambda a, fill="dup": nw.pack_elem(np.asarray(a), fill)
+        if case["vertices"] is not None:
+            nw.update_geometry(jnp.asarray(case["vertices"]))
+        slabs = tuple(pack(a) for a in (inp["To_q"], inp["po_q"],
+                                        inp["extent"]))
+        ale = dict(bc=bc, wq=None if case["wq"] is None
+                   else pack(case["wq"], "zero"),
+                   gcl=None if gcl is None else (pack(gcl[0]),
+                                                 pack(gcl[1])))
+        T, p = jnp.asarray(case["T"]), jnp.asarray(case["p"])
+        if kind == "sharded":
+            R = nw.residual(T, p, *slabs, inp["dt"], **ale)
+            fac = nw.prepare(T, p, *slabs, inp["dt"], **ale)
+            res = nw.solve(fac, -R, rtol=inp["rtol"])
+            dx = np.asarray(res.x)
+        else:
+            y = nw.to_dist2(case["T"], case["p"])
+            Rd = nw.residual(y, *slabs, inp["dt"], **ale)
+            R = np.concatenate(nw.from_dist2(Rd))
+            fac = nw.prepare(y, *slabs, inp["dt"], **ale)
+            res = nw.solve(fac, -Rd, rtol=inp["rtol"])
+            dx = np.concatenate(nw.from_dist2(res.x))
+            out.setdefault("per_device_floats", nw.per_device_floats())
+        out[name] = {"R": np.asarray(R), "Je_s": np.asarray(fac[0]),
+                     "pb": np.asarray(fac[1]), "s": np.asarray(fac[2]),
+                     "dx": dx, "iters": int(res.iters),
+                     "inner_iters": int(res.inner_iters),
+                     "converged": bool(res.converged)}
+    return out
+
+
+def max_rel(a, b):
+    """max|a - b| / max|b| (numpy)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())

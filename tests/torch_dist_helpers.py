@@ -155,3 +155,175 @@ def sumfact_sharded_checks(n_devices, device="cpu", n=8):
              norm=op.norm)
     out["cg"] = {"x": _np(op.from_sharded(res.x)), "iters": res.iters}
     return out
+
+
+# -- the distributed ablation Newton (test_torch_ablation_sharded/_dofpart) --
+
+def _port_bc(bc):
+    from cmfem_tpu_torch.physics.surface_bc import BoundaryState
+
+    return None if bc is None else BoundaryState(*bc)
+
+
+def _port_seb(seb):
+    """(branch, model, table) of the port from (branch, model kwargs)."""
+    from cmfem_tpu_torch.physics.bprime import BPrimeTable
+    from cmfem_tpu_torch.physics.seb import SurfaceFluxModel
+
+    if seb is None:
+        return None
+    branch, kw = seb
+    return (branch, SurfaceFluxModel(**kw), BPrimeTable.synthetic_tacot())
+
+
+def ablation_system(device, inp):
+    """The port's AblationSystem on the strip file ``inp["strip"]`` with the
+    synthetic deck, gravity on, and the JAX package's geometric factors
+    (``inp["gf"]``: detJ, invJ, wdetJ, xq), as
+    ``torch_ablation_helpers.ablation_pair`` builds it."""
+    from cmfem_tpu_torch.core import FESpace, GeometricFactors, load_gmsh
+    from cmfem_tpu_torch.physics.ablation import AblationSystem
+    from cmfem_tpu_torch.physics.tacot import TacotMaterial
+
+    fes = FESpace(load_gmsh(inp["strip"]), 1)
+    ops = SpaceOps(fes, quad_order=4, device=device)
+    ops.gf = GeometricFactors(*(torch.as_tensor(a, device=device)
+                                for a in inp["gf"]))
+    return AblationSystem(ops, TacotMaterial.load_yaml(inp["deck"]),
+                          gravity=(0.0, -9.81), top_attr=inp["top"])
+
+
+def ablation_newton_checks(n_devices, kind, inp, device="cpu"):
+    """On this rank, for each case of ``inp["cases"]`` (a dict of ess_T,
+    ess_p, T, p, seb, bc, vertices, wq, gcl): ``kind``'s class
+    ("sharded" or "dofpart") builds the residual, ``prepare``'s factors and
+    the Newton direction; every distributed piece is gathered to the
+    global layout of the JAX class (element slabs and owned slabs in rank
+    order).  Returns per case the arrays, the GMRES counts and, for the
+    DOF-partitioned class, ``per_device_floats``."""
+    from cmfem_tpu_torch.parallel import (DofPartitionedAblationNewton,
+                                          ShardedAblationNewton,
+                                          make_device_mesh)
+
+    mesh = make_device_mesh(n_devices, device=device)
+    dev = mesh.device
+    sys_ = ablation_system(dev, inp)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    To_q, po_q, X = t(inp["To_q"]), t(inp["po_q"]), t(inp["extent"])
+    out = {"rank": mesh.rank}
+    for name, case in inp["cases"].items():
+        kw = dict(restart=400, maxiter=10, seb=_port_seb(case["seb"]))
+        T, p = t(case["T"]), t(case["p"])
+        wq = None if case["wq"] is None else t(case["wq"])
+        gcl = None if case["gcl"] is None else tuple(map(t, case["gcl"]))
+        bc = _port_bc(case["bc"])
+        if kind == "sharded":
+            nw = ShardedAblationNewton(sys_, mesh, case["ess_T"],
+                                       case["ess_p"], **kw)
+            pack = lambda a, fill="dup": nw.pad_elem(a)
+        else:
+            nw = DofPartitionedAblationNewton(
+                sys_, mesh, case["ess_T"], case["ess_p"],
+                gcl_enabled=gcl is not None, **kw)
+            pack = nw.pack_elem
+        if case["vertices"] is not None:
+            nw.update_geometry(t(case["vertices"]))
+        slabs = (pack(To_q), pack(po_q), pack(X))
+        ale = dict(bc=bc, wq=None if wq is None else pack(wq, "zero"),
+                   gcl=None if gcl is None else (pack(gcl[0]),
+                                                 pack(gcl[1])))
+        if kind == "sharded":
+            R = nw.residual(T, p, *slabs, inp["dt"], **ale)
+            Je_s, pb, s = nw.prepare(T, p, *slabs, inp["dt"], **ale)
+            res = nw.solve((Je_s, pb, s), -R, rtol=inp["rtol"])
+            dx = res.x
+        else:
+            y = nw.to_dist2(T, p)
+            Rd = nw.residual(y, *slabs, inp["dt"], **ale)
+            R = torch.cat(nw.gather2(Rd))
+            Je_s, pb, s = nw.prepare(y, *slabs, inp["dt"], **ale)
+            res = nw.solve((Je_s, pb, s), -Rd, rtol=inp["rtol"])
+            dx = torch.cat(nw.gather2(res.x))
+            pb, s = mesh.all_gather(pb), mesh.all_gather(s)
+            out.setdefault("per_device_floats", nw.per_device_floats())
+            out.setdefault("roundtrip", [_np(a) for a in nw.gather2(y)])
+        out[name] = {"R": _np(R), "Je_s": _np(mesh.all_gather(Je_s)),
+                     "pb": _np(pb), "s": _np(s), "dx": _np(dx),
+                     "iters": res.iters, "inner_iters": res.inner_iters,
+                     "converged": res.converged}
+    return out
+
+
+# -- sharded checkpoints (test_torch_checkpoint) -------------------------------
+
+def checkpoint_round_trip(n_devices, path, deck, device="cpu"):
+    """On this rank: a ``DofPartitionedAblationNewton`` on a 3 x 20 strip
+    and its state (the two-field slab of a seeded (T, p), the packed
+    old-state slabs), saved with ``save_sharded`` and loaded back with
+    ``load_sharded``.  Returns the saved and the loaded arrays (numpy) and
+    the loaded step and time."""
+    from cmfem_tpu_torch.core import make_strip_mesh_2d
+    from cmfem_tpu_torch.io.checkpoint import load_sharded, save_sharded
+    from cmfem_tpu_torch.parallel import (DofPartitionedAblationNewton,
+                                          make_device_mesh)
+    from cmfem_tpu_torch.physics.ablation import (AblationState,
+                                                  AblationSystem)
+    from cmfem_tpu_torch.physics.tacot import TacotMaterial
+
+    mesh = make_device_mesh(n_devices, device=device)
+    dev = mesh.device
+    fes = FESpace(make_strip_mesh_2d(3, 20), 1)
+    ops = SpaceOps(fes, quad_order=4, device=dev)
+    sys_ = AblationSystem(ops, TacotMaterial.load_yaml(deck), top_attr=3)
+    top = fes.boundary_dofs([3])
+    dn = DofPartitionedAblationNewton(sys_, mesh, top, top)
+    rng = np.random.default_rng(4)
+    T = torch.as_tensor(300.0 + 900.0 * rng.random(fes.nscalar), device=dev)
+    p = torch.as_tensor(1e5 * (1.0 + rng.random(fes.nscalar)), device=dev)
+    X = AblationState.initial(sys_.ne, sys_.nq, sys_.mat, device=dev).extent
+    saved = {"y": dn.to_dist2(T, p),
+             "To": dn.pack_elem(ops.values_at_qp(T), "dup"),
+             "po": dn.pack_elem(ops.values_at_qp(p), "dup"),
+             "Xo": dn.pack_elem(X + 0.25, "dup")}
+    save_sharded(path, 7, 0.7, saved)
+    step, time, loaded = load_sharded(path, device=dev)
+    return {"rank": mesh.rank, "step": step, "time": time,
+            "saved": {k: _np(v) for k, v in saved.items()},
+            "loaded": {k: _np(v) for k, v in loaded.items()},
+            "devices": {k: str(v.device) for k, v in loaded.items()}}
+
+
+# -- GMRES with reductions over the ranks (test_torch_krylov_reduce) ----------
+
+def gmres_slab_checks(n_devices, A, b, restart, device="cpu"):
+    """Restarted GMRES on this rank's slab of A x = b (rows split in rank
+    order, the matvec gathers the slabs) with ``reduce=mesh.all_reduce``,
+    the reduce calls counted.  Returns the gathered x, the counts and the
+    number of reduce calls."""
+    from cmfem_tpu_torch.parallel import make_device_mesh
+    from cmfem_tpu_torch.solvers import gmres
+
+    mesh = make_device_mesh(n_devices, device=device)
+    n = len(b)
+    per = -(-n // n_devices)
+    lo, hi = mesh.rank * per, min(n, (mesh.rank + 1) * per)
+    At = torch.as_tensor(A, device=mesh.device)
+    calls = [0]
+
+    def matvec(x):
+        full = mesh.all_gather(torch.nn.functional.pad(
+            x, (0, per - len(x)))).reshape(-1)[:n]
+        return (At @ full)[lo:hi]
+
+    def reduce(t):
+        calls[0] += 1
+        return mesh.all_reduce(t)
+
+    diag = torch.as_tensor(np.diag(A)[lo:hi].copy(), device=mesh.device)
+    res = gmres(matvec, torch.as_tensor(b[lo:hi], device=mesh.device),
+                M=lambda r: r / diag, rtol=1e-10, restart=restart,
+                maxiter=20, reduce=reduce)
+    x = mesh.all_gather(torch.nn.functional.pad(
+        res.x, (0, per - len(res.x)))).reshape(-1)[:n]
+    return {"x": _np(x), "iters": res.iters, "inner_iters": res.inner_iters,
+            "converged": res.converged, "calls": calls[0]}
