@@ -226,8 +226,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      DOF-partitioned state, bit for bit; a load at world size 1 is refused
      in the words "world size"; (c) runs beside (a) and (b).  Any error
      fails the phase; no kernel lies on it, and no launch count moves.
-Each main path (4, 5, 6, 8b's applies, 8c) runs with every launch count set
-to 0 just before it and read just after.  The last lines are the kernels'
+ 16. slice 13, the study scripts of ``cmfem_tpu_torch.scripts``
+     (``run_scripts``, sizes as arguments): (a) the refinement study
+     (``blocksolve_refinement.run_study``) at refine 0 on the graded strip
+     (5,760 DOFs), both synthetic states, line MG and the point blocks at
+     its rtol 1e-6: every solve converged, line MG launching the line
+     kernels (and the point blocks none), the inner iterations printed
+     beside the JAX study's on the reference deck, the finest level's line
+     kernels' ms per call; (b) ``fullrun.main(["case1", "--eager",
+     "--t-final", "0.3", ...])``: exit 0, the artifact ``sane`` with 3
+     steps; (c) ``compensated_dots.run(12, card)``: the float32 solutions
+     with the default and the Neumaier dot within 1e-4 of the float64
+     oracle (CPU).  Only the line kernels' counts move.
+Each main path (4, 5, 6, 8b's applies, 8c, 14a, 16) runs with every launch
+count set to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
@@ -236,9 +248,9 @@ the same run), before it the drivers' JSON records (phase 9's, phase 10's,
 phase 11's, phase 12's and phase 13's: DOFs, steps, seconds per step,
 Newton and Krylov iterations, errors; phases 10-13 with the card; phase
 14's {"linemg", "distributed", "gloo_on_card"}; phase 15's
-{"distributed_ablation": ...}), then the card's name and power limit, and
-{"ok": true,
-"device": {...}}.  Imports no JAX.
+{"distributed_ablation": ...}; phase 16's {"scripts": ...}), then the
+card's name and power limit, and {"ok": true, "device": {...}}.  Imports
+no JAX.
 """
 
 import concurrent.futures
@@ -285,6 +297,7 @@ from cmfem_tpu_torch.ops import BilinearForm, SpaceOps  # noqa: E402
 from cmfem_tpu_torch.ops.partial import (  # noqa: E402
     PAOperator, StructuredGrid3D, StructuredPAOperator)
 from cmfem_tpu_torch.ops.sumfact import SumFactoredOperator  # noqa: E402
+from cmfem_tpu_torch.scripts.common import disc_mesh  # noqa: E402,F401
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 F32 = torch.float32
@@ -311,18 +324,6 @@ def distort(v):
     x + 0.03 prod_d (1 + x_d) sin(pi x_d) in every component."""
     return v + 0.03 * np.prod((1 + v) * np.sin(np.pi * v), axis=1,
                               keepdims=True)
-
-
-def disc_mesh(n):
-    """The unit disc as n x n x 2 triangles: the square [-1, 1]^2 under
-    (x, y) -> (x sqrt(1 - y^2/2), y sqrt(1 - x^2/2)), which takes the
-    square's boundary onto the unit circle."""
-    mesh = make_cartesian_mesh_2d(n, n, sx=2.0, sy=2.0, x0=-1.0, y0=-1.0,
-                                  geom="triangle")
-    x, y = mesh.vertices[:, 0], mesh.vertices[:, 1]
-    return mesh.with_vertices(np.stack(
-        [x * np.sqrt(1.0 - 0.5 * y * y), y * np.sqrt(1.0 - 0.5 * x * x)],
-        axis=1))
 
 
 def cdr(f):
@@ -2488,6 +2489,80 @@ def run_ablation_gloo_on_card(device, tmp, world=2, timeout=180):
     return rec
 
 
+# the JAX study's line-MG and point-block inner iterations at refine 0, on
+# the reference deck and mesh (artifacts_blocksolve_refinement.partial.json;
+# heating, char_cooldown): the port's run on the synthetic deck, so these
+# are printed beside its counts, not held to them
+JAX_16A_REFINE0 = {"linemg": (10, 11), "pointblock": (358, 299)}
+
+
+def run_scripts(device, tmp, nx=11, ny=239, n_dots=12):
+    """Phase 16: the study scripts of ``cmfem_tpu_torch.scripts`` through
+    their entry points, float64 unless named: (a) the refinement study at
+    refine 0 (both states, line MG and the point blocks), (b) ``fullrun
+    case1 --eager --t-final 0.3`` through the module's ``main`` (the
+    artifact's ``sane``), (c) the compensated-dot CG at N = ``n_dots``
+    (float64 oracle on the CPU, float32 on ``device``).  Returns the
+    ``scripts`` record.  The sizes are arguments so that the control flow
+    can be rehearsed small on a CPU."""
+    from cmfem_tpu_torch.scripts import (blocksolve_refinement,
+                                         compensated_dots, fullrun)
+
+    cuda = torch.device(device).type == "cuda"
+    rec = {}
+    # -- 16a. the refinement study at refine 0
+    t0 = time.perf_counter()
+    study = blocksolve_refinement.run_study(
+        (0,), device=device, out_dir=tmp, nx=nx, ny=ny)
+    lv = study["levels"][0]
+    for name, st in lv["states"].items():
+        for pc in ("linemg", "pointblock"):
+            r = st[pc]
+            log(f"phase 16a: refine 0 ({lv['ndofs_tp']} DOFs) {name} "
+                f"({st['branch']}) {pc}: converged={r['converged']}, "
+                f"{r['inner_iters']} inner iterations ({r['cycles']} cycles;"
+                f" the JAX study's on the reference deck "
+                f"{JAX_16A_REFINE0[pc]}), prepare+solve "
+                f"{r['prepare_plus_solve_s']:.3f} s, rel residual "
+                f"{r['rel_residual']:.3e}, line launches "
+                f"{r['launches_factor']}/{r['launches_solve']}")
+            assert r["converged"], (name, pc)
+            if pc == "pointblock":
+                assert r["launches_solve"] == 0, r
+            elif cuda:
+                assert r["launches_factor"] > 0 and r["launches_solve"] > 0, r
+    log(f"phase 16a: line-MG levels {lv['nxs']}; finest level line_factor "
+        f"{lv.get('line_factor_ms')} ms, line_solve {lv.get('line_solve_ms')}"
+        f" ms per call (NY = {lv['NY']}); peak {lv['peak_gib']} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec["refinement_refine0"] = lv
+    # -- 16b. fullrun case 1, 3 steps through main
+    t0 = time.perf_counter()
+    art_path = os.path.join(tmp, "fullrun_case1.json")
+    rc = fullrun.main(["case1", "--eager", "--t-final", "0.3", "--out-dir",
+                       os.path.join(tmp, "fr1"), "--artifact", art_path]
+                      + ([] if cuda else ["--cpu"]))
+    with open(art_path) as f:
+        art = json.load(f)
+    log(f"phase 16b: fullrun case1 --eager --t-final 0.3: rc {rc}, sane "
+        f"{art['sane']}, {art['n_steps']} steps, {art['ms_per_step']} ms per "
+        f"step, T {art['T_min']}..{art['T_max']} K, m_dot_g peak "
+        f"{art['mdot_g_peak']}; {time.perf_counter() - t0:.1f} s")
+    assert rc == 0 and art["sane"] and art["n_steps"] == 3, art
+    rec["fullrun_case1"] = art
+    # -- 16c. compensated dots
+    t0 = time.perf_counter()
+    cd = compensated_dots.run(n_dots, torch.device(device))
+    log(f"phase 16c: compensated dots N = {n_dots} ({cd['ndofs']} DOFs): "
+        f"oracle {cd['oracle_iters']} iterations; float32 plain "
+        f"{cd['plain_vdot']}, Neumaier {cd['neumaier']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("plain_vdot", "neumaier"):
+        assert cd[name]["rel_l2_vs_f64_oracle"] <= 1e-4, cd
+    rec["compensated_dots"] = cd
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     # -- 1. checks --------------------------------------------------------
@@ -3149,6 +3224,19 @@ def main():
     log(f"phase 15: {t15:.1f} s (budget 40 s): 15a+15b {t15ab:.1f} s, 15c "
         f"{dist_ablation['15c_gloo_on_card']['spawn_s']:.1f} s beside them")
 
+    # -- 16. slice 13: the study scripts ------------------------------------
+    t16 = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        scripts = {**run_scripts(dev, tmp), "card": smi}
+    # only the line-MG kernels run here (16a's line MG)
+    lm16 = counts()
+    assert {k for k, v in lm16.items() if v} == {
+        "line_factor", "line_solve"}, lm16
+    scripts["launches"] = {k: lm16[k] for k in ("line_factor", "line_solve")}
+    t16 = time.perf_counter() - t16
+    log(f"phase 16: {t16:.1f} s (budget 15 s)")
+
     def record(name, source, replaces, launches, err, k, p, bnd, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cmfem_tpu_torch/csrc/{source}",
@@ -3174,6 +3262,7 @@ def main():
     log(json.dumps({"linemg": linemg, "distributed": distributed,
                     "gloo_on_card": gloo_on_card}))
     log(json.dumps({"distributed_ablation": dist_ablation}))
+    log(json.dumps({"scripts": scripts}))
     log(json.dumps({"kernels": [
         record("btdb", "btdb.cu", "cmfem_tpu/ops/partial.py:69",
                b1_launches, b1_abs, b1_k, b1_p, b1_bound, call_ms=b1_call,
@@ -3193,10 +3282,11 @@ def main():
         *[record(name, "linemg.cu",
                  f"cmfem_tpu/solvers/linemg.py:{line} (an XLA lax.scan; "
                  f"no Pallas kernel)",
-                 sum(rec["linemg"]["launches"][name] for rec in linemg),
+                 sum(rec["linemg"]["launches"][name] for rec in linemg)
+                 + scripts["launches"][name],
                  lm_err[key], [lm[name]["ms"]], [lm[name]["plain_ms"]],
                  lm[name]["bound"], levels=lm["levels"], NY=lm["NY"],
-                 NX=lm["NX"])
+                 NX=lm["NX"], launches_16a=scripts["launches"][name])
           for name, line, key in (("line_factor", 157, "factor_and_solve"),
                                   ("line_solve", 192, "solve"))],
         record("sumfact_zchain", "sumfact_zchain.cu",

@@ -41,20 +41,21 @@ def neumaier_dot(a, b, chunks: int = 256):
     combined by a sequential Neumaier compensation (a host loop here, a
     ``lax.scan`` there) -- accumulation error O(eps) instead of
     O(eps sqrt(chunks)); the products' own rounding remains.  Pass as
-    ``cg(..., dot=neumaier_dot)``."""
+    ``cg(..., dot=neumaier_dot)``.  The partials are read back once and
+    compensated in numpy scalars of the working dtype (the same IEEE sums
+    as on the device, without a launch per operation); the result is a
+    0-d tensor on the inputs' device."""
     p = a.reshape(-1) * b.reshape(-1)
     n = p.shape[0]
     c = min(chunks, n)
     p = torch.nn.functional.pad(p, (0, (-n) % c)).reshape(c, -1)
-    partials = torch.sum(p, dim=1)
-    s = torch.zeros((), dtype=p.dtype, device=p.device)
-    comp = torch.zeros_like(s)
+    partials = torch.sum(p, dim=1).cpu().numpy()
+    s = comp = partials.dtype.type(0)
     for v in partials:
         t = s + v
-        comp = comp + torch.where(torch.abs(s) >= torch.abs(v),
-                                  (s - t) + v, (v - t) + s)
+        comp = comp + ((s - t) + v if abs(s) >= abs(v) else (v - t) + s)
         s = t
-    return s + comp
+    return torch.as_tensor(s + comp, device=p.device)
 
 
 def cg(apply_A: Callable, b, x0=None, M: Callable | None = None,

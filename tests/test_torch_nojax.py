@@ -1,6 +1,6 @@
 """The port stands alone: no module of cmfem_tpu_torch (nor chip_smoke.py)
-imports jax or the JAX package, and chip_smoke.py refuses to run without a
-GPU or without the package beside it."""
+imports jax, the JAX package or the repo's scripts/, and chip_smoke.py
+refuses to run without a GPU or without the package beside it."""
 
 import os
 import pkgutil
@@ -81,14 +81,22 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.validation.compare_case2",
             "cmfem_tpu_torch.validation.compare_qstar",
             "cmfem_tpu_torch.validation.generate_material",
-            "cmfem_tpu_torch.validation.plots"} <= set(mods)
+            "cmfem_tpu_torch.validation.plots",
+            "cmfem_tpu_torch.scripts", "cmfem_tpu_torch.scripts.common",
+            "cmfem_tpu_torch.scripts.blocksolve_refinement",
+            "cmfem_tpu_torch.scripts.fullrun",
+            "cmfem_tpu_torch.scripts.oracle_compare",
+            "cmfem_tpu_torch.scripts.accuracy_table",
+            "cmfem_tpu_torch.scripts.compensated_dots",
+            "cmfem_tpu_torch.scripts.comms_model"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cmfem_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cmfem_tpu',\n"
+        "                                    'scripts'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = _run(["-c", code], cwd=ROOT)
