@@ -230,14 +230,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      (``run_scripts``, sizes as arguments): (a) the refinement study
      (``blocksolve_refinement.run_study``) at refine 0 on the graded strip
      (5,760 DOFs), both synthetic states, line MG and the point blocks at
-     its rtol 1e-6: every solve converged, line MG launching the line
+     its rtol 1e-6, one untimed pass (no warm-up, no kernel timing; 14a
+     times the kernels): every solve converged, line MG launching the line
      kernels (and the point blocks none), the inner iterations printed
-     beside the JAX study's on the reference deck, the finest level's line
-     kernels' ms per call; (b) ``fullrun.main(["case1", "--eager",
-     "--t-final", "0.3", ...])``: exit 0, the artifact ``sane`` with 3
-     steps; (c) ``compensated_dots.run(12, card)``: the float32 solutions
-     with the default and the Neumaier dot within 1e-4 of the float64
-     oracle (CPU).  Only the line kernels' counts move.
+     beside the JAX study's on the reference deck; (b)
+     ``fullrun.main(["case1", "--eager", "--t-final", "0.3", ...])``: exit
+     0, the artifact ``sane`` with 3 steps; (c) ``compensated_dots.run(12,
+     card)``: the float32 solutions with the default and the Neumaier dot
+     within 1e-4 of the float64 oracle (CPU).  Only the line kernels'
+     counts move, and they equal the sum of the study's per-solve counts.
 Each main path (4, 5, 6, 8b's applies, 8c, 14a, 16) runs with every launch
 count set to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
@@ -288,6 +289,7 @@ from cmfem_tpu_torch.apps import (  # noqa: E402
     qstar_blowing_1d,
 )
 from cmfem_tpu_torch.core import pointlocate  # noqa: E402
+from cmfem_tpu_torch.kernels import bound, median_ms  # noqa: E402
 from cmfem_tpu_torch.kernels import btdb as kbtdb  # noqa: E402
 from cmfem_tpu_torch.kernels import build as kbuild  # noqa: E402
 from cmfem_tpu_torch.kernels import linemg as klmg  # noqa: E402
@@ -301,9 +303,6 @@ from cmfem_tpu_torch.scripts.common import disc_mesh  # noqa: E402,F401
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 F32 = torch.float32
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3 (NVIDIA's data sheet)
-F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores (data sheet)
-F64_FLOP_PER_S = 34e12     # float64 outside the tensor cores (data sheet)
 # the launch counters each operator_paths path must move, and only they
 PATH_COUNTERS = {
     "sumfact": set(), "sumfact-periodic": set(),
@@ -362,16 +361,6 @@ def compare(fk, fp, *args):
     torch.cuda.synchronize()
     assert torch.isfinite(yk).all(), "kernel output is not finite"
     return rel_err(yk, yp), float((yk - yp).abs().max())
-
-
-def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``nbytes`` and do ``flops`` operations at ``flop_rate`` (float32
-    by default)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / flop_rate
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def nbytes(*ts):
@@ -447,21 +436,6 @@ def time_new_btdb_shapes(dev, ne):
 def stacked(fn):
     """fn's tuple of outputs as one tensor (for compare)."""
     return lambda *args: torch.stack(fn(*args))
-
-
-def median_ms(fn, reps=50, warmup=10):
-    for _ in range(warmup):
-        fn()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return statistics.median(ts)
 
 
 def graph_ms(fn, calls=10, reps=20):
@@ -1719,25 +1693,15 @@ def linemg_kernels_vs_plain(device, hierarchy, timing=False):
            "max_rel_err": errs, "max_abs_err": abs_errs}
     if not timing:
         return out
-    isz = SS.element_size()
-    rows = (NY - 1) * NX
-    fac_bytes = isz * (rows * (3 * 4 + 16) + NX * 8)
-    out["line_factor"] = {
-        "ms": median_ms(lambda: klmg.line_factor(SS), reps=5, warmup=1),
-        "plain_ms": 1e3 * plain_s,
-        # reads the three stencil planes, writes the factors; ~330 flops a
-        # row (two 4-term reflectors, applied to 2 + 4 columns, Q formed)
-        "bound": bound(isz * 3 * 4 * NY * NX + fac_bytes, 330 * rows,
-                       F64_FLOP_PER_S)}
-    out["line_solve"] = {
-        "ms": median_ms(lambda: klmg.line_solve(fac, r), reps=5, warmup=1),
-        "plain_ms": median_ms(lambda: klmg.line_solve_plain(plain, r),
-                              reps=2, warmup=1),
-        # reads the factors and r once, writes x; 56 flops a row
-        "bound": bound(fac_bytes + 2 * isz * 2 * NY * NX, 56 * rows,
-                       F64_FLOP_PER_S)}
+    times = klmg.device_ms(SS, fac, r)
+    bounds = klmg.bounds(NY, NX, SS.element_size())
+    plain_ms = {
+        "line_factor": 1e3 * plain_s,
+        "line_solve": median_ms(lambda: klmg.line_solve_plain(plain, r),
+                                reps=2, warmup=1)}
     for name in ("line_factor", "line_solve"):
-        t = out[name]
+        t = out[name] = {"ms": times[name], "plain_ms": plain_ms[name],
+                         "bound": bounds[name]}
         log(f"phase 14a: {name} at NY={NY}, NX={NX}, float64: kernel "
             f"{t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
             f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
@@ -2504,7 +2468,8 @@ def run_scripts(device, tmp, nx=11, ny=239, n_dots=12):
     artifact's ``sane``), (c) the compensated-dot CG at N = ``n_dots``
     (float64 oracle on the CPU, float32 on ``device``).  Returns the
     ``scripts`` record.  The sizes are arguments so that the control flow
-    can be rehearsed small on a CPU."""
+    can be rehearsed small on a CPU (``tests/test_torch_scripts_phase16.py``).
+    """
     from cmfem_tpu_torch.scripts import (blocksolve_refinement,
                                          compensated_dots, fullrun)
 
@@ -2512,8 +2477,9 @@ def run_scripts(device, tmp, nx=11, ny=239, n_dots=12):
     rec = {}
     # -- 16a. the refinement study at refine 0
     t0 = time.perf_counter()
+    # one untimed pass: the study launches nothing but its solves
     study = blocksolve_refinement.run_study(
-        (0,), device=device, out_dir=tmp, nx=nx, ny=ny)
+        (0,), device=device, out_dir=tmp, nx=nx, ny=ny, timed=False)
     lv = study["levels"][0]
     for name, st in lv["states"].items():
         for pc in ("linemg", "pointblock"):
@@ -2531,10 +2497,8 @@ def run_scripts(device, tmp, nx=11, ny=239, n_dots=12):
                 assert r["launches_solve"] == 0, r
             elif cuda:
                 assert r["launches_factor"] > 0 and r["launches_solve"] > 0, r
-    log(f"phase 16a: line-MG levels {lv['nxs']}; finest level line_factor "
-        f"{lv.get('line_factor_ms')} ms, line_solve {lv.get('line_solve_ms')}"
-        f" ms per call (NY = {lv['NY']}); peak {lv['peak_gib']} GiB; "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 16a: line-MG levels {lv['nxs']} (NY = {lv['NY']}); peak "
+        f"{lv['peak_gib']} GiB; {time.perf_counter() - t0:.1f} s")
     rec["refinement_refine0"] = lv
     # -- 16b. fullrun case 1, 3 steps through main
     t0 = time.perf_counter()
@@ -3229,11 +3193,18 @@ def main():
     reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         scripts = {**run_scripts(dev, tmp), "card": smi}
-    # only the line-MG kernels run here (16a's line MG)
+    # only the line-MG kernels run here, in 16a's solves, and the study's
+    # records count each of them
     lm16 = counts()
     assert {k for k, v in lm16.items() if v} == {
         "line_factor", "line_solve"}, lm16
     scripts["launches"] = {k: lm16[k] for k in ("line_factor", "line_solve")}
+    solves16 = [r for st in scripts["refinement_refine0"]["states"].values()
+                for r in (st["linemg"], st["pointblock"])]
+    assert scripts["launches"] == {
+        name: sum(r[f"launches_{key}"] for r in solves16)
+        for name, key in (("line_factor", "factor"),
+                          ("line_solve", "solve"))}, (lm16, solves16)
     t16 = time.perf_counter() - t16
     log(f"phase 16: {t16:.1f} s (budget 15 s)")
 

@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from . import F64_FLOP_PER_S, bound, median_ms
 from .build import load_library
 
 LIB_NAME = "cmfem_linemg"
@@ -183,3 +184,28 @@ def line_solve(fac, r):
             + [NY, NX], r.device)
     launches_solve += 1
     return out
+
+
+def bounds(NY, NX, itemsize):
+    """{kernel: (ms, "bytes" or "operations")}: the least time the card
+    could take for each kernel's work on an NY x NX lattice of 2x2 blocks
+    (``kernels.bound``; the operations at the float64 rate).  The
+    factorization reads the three stencil planes once and writes the
+    factors, ~330 flops a row (two 4-term reflectors applied to 2 + 4
+    columns, Q formed); the solve reads the factors and r once and writes
+    x, 56 flops a row."""
+    rows = (NY - 1) * NX
+    fac_bytes = itemsize * (rows * (3 * 4 + 16) + NX * 8)
+    return {"line_factor": bound(itemsize * 3 * 4 * NY * NX + fac_bytes,
+                                 330 * rows, F64_FLOP_PER_S),
+            "line_solve": bound(fac_bytes + 2 * itemsize * 2 * NY * NX,
+                                56 * rows, F64_FLOP_PER_S)}
+
+
+def device_ms(SS, fac, r, reps=5, warmup=1):
+    """{kernel: median device ms per call}: ``line_factor(SS)`` and
+    ``line_solve(fac, r)`` on CUDA tensors, between CUDA events.  These
+    calls count as launches: read a path's counters before timing."""
+    return {"line_factor": median_ms(lambda: line_factor(SS), reps, warmup),
+            "line_solve": median_ms(lambda: line_solve(fac, r), reps,
+                                    warmup)}

@@ -33,8 +33,8 @@ prepare_plus_solve_s, rel_residual: the preconditioned residual over
 |R|, known problem 3) and the port's: the line-MG level widths
 (``nxs``), the line kernels' launches in the timed run, and per level the
 peak device memory and, on the card, the finest level's ``line_factor``
-and ``line_solve`` device ms per call beside their bounds.  A partial JSON is flushed after
-every level.
+and ``line_solve`` device ms per call beside their bounds.  A partial
+JSON is flushed after every level.
 
     python -m cmfem_tpu_torch.scripts.blocksolve_refinement [0 1 2 3]
         [--cpu] [--out-dir DIR] [--nx 11 --ny 239]
@@ -165,54 +165,36 @@ def solvers_of(fes, ess, lat, lvl, restart, maxiter, pointblock_max_refine,
     return out
 
 
-def device_ms(fn, device, reps=20, warmup=3):
-    """Median device ms of one ``fn()`` between CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize(device)
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 def line_kernel_ms(arrs, device):
-    """The finest level's line factorization and line solve, device ms per
-    call (the counters are read before this: these launches are not the
-    study's), each beside its bound: the bytes it must move over the H100
-    SXM's 3.35 TB/s (NVIDIA's data sheet; at these sizes the bytes bound
-    both, as chip_smoke phase 14a counts them: the factorization reads the
-    three stencil planes and writes the factors, the solve reads the
-    factors and r and writes x)."""
-    from ..kernels.linemg import line_factor, line_solve
+    """The finest level's ``line_factor`` and ``line_solve``: device ms per
+    call and bound ms (``kernels.linemg.device_ms`` and ``bounds``).  These
+    launches are not the study's: its counts are read before."""
+    from ..kernels import linemg as klmg
 
     SS, fac = arrs[0]
     NY, NX = SS.shape[2], SS.shape[3]
     gen = torch.Generator(device=device).manual_seed(0)
     r = torch.randn(NY, NX, 2, dtype=SS.dtype, device=device, generator=gen)
-    isz = SS.element_size()
-    fac_bytes = isz * ((NY - 1) * NX * (3 * 4 + 16) + NX * 8)
-    return {"line_factor_ms": device_ms(lambda: line_factor(SS), device),
-            "line_factor_bound_ms": 1e3 * (isz * 3 * 4 * NY * NX
-                                           + fac_bytes) / 3.35e12,
-            "line_solve_ms": device_ms(lambda: line_solve(fac, r), device),
-            "line_solve_bound_ms": 1e3 * (fac_bytes + 2 * isz * 2 * NY * NX)
-            / 3.35e12}
+    times = klmg.device_ms(SS, fac, r, reps=20, warmup=3)
+    out = {}
+    for name, (ms, by) in klmg.bounds(NY, NX, SS.element_size()).items():
+        out.update({f"{name}_ms": times[name], f"{name}_bound_ms": ms,
+                    f"{name}_bound_by": by})
+    return out
 
 
 def run_study(refinements=(0, 1, 2, 3), rtol=1e-6, dt=0.0025, restart=400,
               maxiter=10, pointblock_max_refine=1, *, device, out_dir,
-              nx=11, ny=239):
+              nx=11, ny=239, timed=True):
     """Both preconditioners under strip refinement (the JAX study's
     ``run_study``): ``linemg`` at every refinement, ``pointblock`` with the
     restart x maxiter budget at refinements <= ``pointblock_max_refine``.
-    Each solve is run twice (prepare + solve): the first warms up (kernel
-    build, allocator), the second is timed and counted."""
+    With ``timed`` each solve (prepare + solve) runs twice, the first to
+    warm up (kernel build, allocator), the second timed and counted, and
+    on the card the finest level's line kernels are timed after it.
+    Without, each solve runs once and the study launches nothing else: its
+    records' launches are then all the line kernels' launches of the call
+    (chip_smoke phase 16, whose kernels are built and timed before)."""
     from ..core import load_gmsh
     from ..kernels import linemg as klmg
     from ..physics.bprime import BPrimeTable
@@ -245,9 +227,10 @@ def run_study(refinements=(0, 1, 2, 3), rtol=1e-6, dt=0.0025, restart=400,
             rnorm = max(1e-300, float(torch.linalg.vector_norm(R)))
             st = {"branch": branch}
             for pc_name, bks in solvers.items():
-                fac = bks.prepare(blocks, face=face, face_elem=face_elem)
-                res = bks.solve(fac, -R, rtol=rtol)      # warm-up
-                common.sync(device)
+                if timed:                                 # warm-up
+                    fac = bks.prepare(blocks, face=face, face_elem=face_elem)
+                    res = bks.solve(fac, -R, rtol=rtol)
+                    common.sync(device)
                 before = (klmg.launches_factor, klmg.launches_solve)
                 t0 = time.perf_counter()
                 fac = bks.prepare(blocks, face=face, face_elem=face_elem)
@@ -263,8 +246,8 @@ def run_study(refinements=(0, 1, 2, 3), rtol=1e-6, dt=0.0025, restart=400,
                     "launches_factor": klmg.launches_factor - before[0],
                     "launches_solve": klmg.launches_solve - before[1],
                 }
-                if cuda and pc_name == "linemg" and "line_solve_ms" \
-                        not in rec:
+                if timed and cuda and pc_name == "linemg" \
+                        and "line_solve_ms" not in rec:
                     rec.update(line_kernel_ms(fac[1], device))
                 print(f"# refine={lvl} ndofs_tp={2 * n} state={name} "
                       f"pc={pc_name} cycles={int(res.iters)} "

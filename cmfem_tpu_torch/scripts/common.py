@@ -49,6 +49,17 @@ def run_device(cpu=False) -> torch.device:
     return resolve_device("cpu" if cpu else device_from_env())
 
 
+def cpu_only(cpu, why) -> torch.device:
+    """The CPU for a run that is the CPU's by design (``why`` says which),
+    when the caller asks for it (``cpu`` or CMFEM_FORCE_CPU=1); otherwise a
+    RuntimeError naming the reason, since an entry point of the port runs
+    on the card unless told otherwise."""
+    if cpu or device_from_env() == "cpu":
+        return torch.device("cpu")
+    raise RuntimeError(f"{why}: ask for the CPU with --cpu or "
+                       f"CMFEM_FORCE_CPU=1")
+
+
 def out_dir(path, name):
     """``path`` (created), or a new directory for study ``name`` under the
     system's temporary directory."""

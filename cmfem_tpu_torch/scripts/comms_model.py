@@ -24,11 +24,14 @@ Paths, as the JAX study models them:
 
 Each world size N runs in one spawn of N gloo ranks on the CPU
 (``parallel.spawn_ranks``): bytes and counts do not depend on the device.
+The CPU is asked for with --cpu (or CMFEM_FORCE_CPU=1); without it the
+module refuses to run.
 Beside the counted bytes stand the analytic halo of the z split,
 2 * NXd * NYd * itemsize per neighbouring pair and apply, and the JAX
 study's HLO counts at N = 8 (``JAX_N8``).  No time is projected.
 
-    python -m cmfem_tpu_torch.scripts.comms_model [2 4 8] [--out-dir DIR]
+    python -m cmfem_tpu_torch.scripts.comms_model [2 4 8] --cpu
+        [--out-dir DIR]
 """
 
 from __future__ import annotations
@@ -263,13 +266,12 @@ DIFFERENCES = [
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
+    from .common import add_run_args, cpu_only, out_dir, write_json
+
+    ap = add_run_args(argparse.ArgumentParser(description=__doc__))
     ap.add_argument("world_sizes", nargs="*", type=int, default=[2, 4, 8])
-    ap.add_argument("--out-dir", default=None,
-                    help="where the result goes (default: a new directory "
-                         "under the system's temporary directory)")
     args = ap.parse_args(argv)
-    from .common import out_dir, write_json
+    cpu_only(args.cpu, "comms_model counts on gloo CPU ranks")
 
     art = {"method": "collectives counted at their torch.distributed calls "
                      "on gloo CPU ranks (CollectiveLog); per-apply and "

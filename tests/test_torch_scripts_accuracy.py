@@ -53,6 +53,38 @@ def test_float32_row_near_float64(rows):
     assert abs(eb - ea) <= 1e-2 * ea
 
 
+@pytest.mark.parametrize("message, recorded", [
+    ("Linear solver failed at step 1: residual 1.08e-06", True),
+    ("CUDA error: unspecified launch failure", False)])
+def test_float32_rows_record_only_the_solver_stop(rows, monkeypatch,
+                                                  message, recorded):
+    """In float32 a row records the driver's linear-solve stop as
+    ``failed``; every other RuntimeError propagates."""
+    d, _ = rows
+
+    def stop(*args):
+        raise RuntimeError(message)
+
+    monkeypatch.setattr(accuracy_table, "run_case", stop)
+    run = lambda: accuracy_table.run_all("f32", torch.device("cpu"), d,
+                                         names={"diffusion_mms"})
+    if recorded:
+        assert run() == {"diffusion_mms": {"failed": message}}
+    else:
+        with pytest.raises(RuntimeError, match="launch failure"):
+            run()
+
+
+def test_float64_mode_runs_on_the_cpu_only_when_asked(monkeypatch,
+                                                      tmp_path):
+    """Column A is the CPU's: without --cpu (or CMFEM_FORCE_CPU=1) the
+    float64 mode refuses to run, naming why."""
+    monkeypatch.delenv("CMFEM_FORCE_CPU", raising=False)
+    with pytest.raises(RuntimeError, match="float64 oracle on the CPU"):
+        accuracy_table.main(["f64", "--out-dir", str(tmp_path)])
+    assert not (tmp_path / "acc_ref.npz").exists()
+
+
 @pytest.mark.parametrize("neumaier", [False, True])
 def test_compensated_dots_cg_matches_jax(neumaier):
     import jax.numpy as jnp

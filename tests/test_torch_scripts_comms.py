@@ -6,7 +6,10 @@ two of each), with no set-up traffic; the DOF-partitioned CG makes 6
 all_reduces per iteration, two interface halos of n_interface + 1 floats
 and four scalar dots, the same on every rank, and 8 outside the loop; the
 interface size is the JAX package's ``DofPartition``'s on the same mesh;
-and ``CollectiveLog`` leaves ``torch.distributed`` as it found it."""
+and ``CollectiveLog`` leaves ``torch.distributed`` as it found it; ``main``
+runs only when the CPU is asked for."""
+
+import json
 
 import numpy as np
 import pytest
@@ -64,3 +67,16 @@ def test_collective_log_restores_torch_distributed():
     assert log.records == []
     for k, fn in before.items():
         assert getattr(dist, k) is fn and getattr(c10d, k) is fn
+
+
+def test_main_runs_on_the_cpu_only_when_asked(monkeypatch, tmp_path):
+    """``main`` refuses to run without --cpu (or CMFEM_FORCE_CPU=1), and
+    with it writes its artifact under --out-dir."""
+    monkeypatch.delenv("CMFEM_FORCE_CPU", raising=False)
+    with pytest.raises(RuntimeError, match="gloo CPU ranks"):
+        comms_model.main(["2", "--out-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
+    assert comms_model.main(["2", "--cpu", "--out-dir", str(tmp_path)]) == 0
+    with open(tmp_path / "comms_model.json") as f:
+        art = json.load(f)
+    assert [m["n_devices"] for m in art["by_world_size"]] == [2]
