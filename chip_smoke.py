@@ -188,7 +188,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      systems (``JAX_14A_LINEMG``), beside 11c's point-block count; set-up
      ms and solve s; the true relative residual on the host matrix; the
      direction equal to the direct solve's (host ``splu``,
-     ``BlockTridiagDirect``) to 1e-8; (b) the distributed operator layer in
+     ``BlockTridiagDirect``) to 1e-8; then the line kernels outside the
+     counted runs (``linemg_kernels_vs_plain``): against their plain
+     versions at the finest level (1e-8), and at every level of both
+     hierarchies the kernel solve's line residual at most 1e-10 and within
+     10 times the plain solve's on the same factors, a repeated solve equal
+     bit for bit, and the kernel's launch geometry its wrapper's; at
+     every level of the 86,130-DOF hierarchy (NX 45 -> 1) each kernel's
+     device ms (a replayed CUDA graph) and ms a call beside its bound, and
+     ``line_factor``'s chain floor from the slope between NY = 240 and 957
+     at NX = 1 (``factor_chain_floor``); (b) the distributed operator layer in
      a world of one rank over NCCL, at 48^3, order 2 (912,673 DOFs), float64
      and float32: ``ShardedPoissonApply`` (CDR form) and
      ``DofPartitionedOperator`` (SPD form) against ``BilinearForm.apply``,
@@ -289,12 +298,13 @@ from cmfem_tpu_torch.apps import (  # noqa: E402
     qstar_blowing_1d,
 )
 from cmfem_tpu_torch.core import pointlocate  # noqa: E402
-from cmfem_tpu_torch.kernels import bound, median_ms  # noqa: E402
+from cmfem_tpu_torch.kernels import bound, graph_ms, median_ms  # noqa: E402
 from cmfem_tpu_torch.kernels import btdb as kbtdb  # noqa: E402
 from cmfem_tpu_torch.kernels import build as kbuild  # noqa: E402
 from cmfem_tpu_torch.kernels import linemg as klmg  # noqa: E402
 from cmfem_tpu_torch.kernels import sumfact as ksum  # noqa: E402
 from cmfem_tpu_torch.kernels import zchain as kz  # noqa: E402
+from cmfem_tpu_torch.solvers.linemg import line_residual  # noqa: E402
 from cmfem_tpu_torch.ops import BilinearForm, SpaceOps  # noqa: E402
 from cmfem_tpu_torch.ops.partial import (  # noqa: E402
     PAOperator, StructuredGrid3D, StructuredPAOperator)
@@ -436,33 +446,6 @@ def time_new_btdb_shapes(dev, ne):
 def stacked(fn):
     """fn's tuple of outputs as one tensor (for compare)."""
     return lambda *args: torch.stack(fn(*args))
-
-
-def graph_ms(fn, calls=10, reps=20):
-    """Median device ms per call of ``fn``: ``calls`` calls captured in one
-    CUDA graph and replayed between two events, so the host's enqueue time
-    (the wrapper's checks, ctypes) is not in it."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    ts = []
-    for _ in range(reps + 2):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b) / calls)
-    del graph
-    return statistics.median(ts[2:])
 
 
 def in_turns(kernel, plain, reps=50, graph=False):
@@ -1664,14 +1647,21 @@ JAX_14A_LINEMG = {5_760: 35, 86_130: 56}
 
 
 def linemg_kernels_vs_plain(device, hierarchy, timing=False):
-    """The line-MG kernels against their plain versions at the finest level
-    of a hierarchy of phase 14a (outside the counted runs): the kernels'
-    factors and solve of a seeded r against the plain factors and solve,
-    and the solve kernel on the plain factors against the plain solve
-    (max|x_k - x_p| / max|x_p|, float64; the QR's signs may differ, so
-    factors are compared through their solves).  With ``timing`` each
-    kernel and its plain version is timed there too (CUDA events; the plain
-    factorization once, it takes seconds), beside its bound."""
+    """The line-MG kernels of a hierarchy of phase 14a (outside the counted
+    runs).  At the finest level: the kernels' factors and solve of a seeded
+    r against the plain factors and solve, and the solve kernel on the
+    plain factors against the plain solve (max|x_k - x_p| / max|x_p| <=
+    1e-8, float64; the QR's signs may differ, so factors are compared
+    through their solves).  At every level: the kernels' line residual
+    |A_line x - r| / |r| at most 1e-10 (the line blocks are SS's, so this
+    holds the factor kernel too), and within 10 times, plus 1e-13, the
+    plain solve's on the kernels' factors (the plain factorization takes
+    seconds a level, so it runs at the finest only); two solves on the
+    same inputs equal bit for bit; the built kernel's launch geometry
+    equal to ``klmg.solve_geometry``.  With ``timing`` each kernel is
+    timed at every level (``klmg.level_times``: device ms from a replayed
+    CUDA graph, and ms of one call between CUDA events) beside its bound,
+    and the plain versions at the finest."""
     gen = torch.Generator(device=device).manual_seed(14)
     SS, fac = hierarchy[0]
     NY, NX = SS.shape[2], SS.shape[3]
@@ -1690,21 +1680,66 @@ def linemg_kernels_vs_plain(device, hierarchy, timing=False):
         f"{errs['solve']:.3e} (tol 1e-8)")
     assert max(errs.values()) <= 1e-8, errs
     out = {"levels": len(hierarchy), "NY": NY, "NX": NX,
-           "max_rel_err": errs, "max_abs_err": abs_errs}
+           "max_rel_err": errs, "max_abs_err": abs_errs, "by_level": []}
+    for level, (SSl, facl) in enumerate(hierarchy):
+        nx = SSl.shape[3]
+        rl = torch.randn((NY, nx, 2), generator=gen, dtype=SS.dtype,
+                         device=device)
+        xk = klmg.line_solve(facl, rl)
+        repeat = bool(torch.equal(klmg.line_solve(facl, rl), xk))
+        res_k = line_residual(SSl, xk, rl)
+        res_p = line_residual(SSl, klmg.line_solve_plain(facl, rl), rl)
+        geometry = klmg.kernel_solve_geometry(NY, nx, SS.element_size())
+        rec = {"level": level, "NX": nx, "line_residual": res_k,
+               "plain_line_residual": res_p, "repeat_bit_for_bit": repeat,
+               "solve_geometry": geometry}
+        msg = (f"phase 14a: level {level} (NY={NY}, NX={nx}): line residual "
+               f"{res_k:.3e} (plain solve {res_p:.3e}), repeat bit for bit "
+               f"{repeat}, geometry {geometry}")
+        if timing:
+            times = klmg.level_times(SSl, facl, rl)
+            rec.update(times)
+            msg += "; " + klmg.describe(times)
+        log(msg)
+        assert repeat, level
+        assert res_k <= 1e-10, (level, res_k)
+        assert res_k <= 10 * res_p + 1e-13, (level, res_k, res_p)
+        assert geometry == klmg.solve_geometry(NY, nx, SS.element_size()), \
+            (level, geometry)
+        out["by_level"].append(rec)
     if not timing:
         return out
-    times = klmg.device_ms(SS, fac, r)
-    bounds = klmg.bounds(NY, NX, SS.element_size())
     plain_ms = {
         "line_factor": 1e3 * plain_s,
         "line_solve": median_ms(lambda: klmg.line_solve_plain(plain, r),
                                 reps=2, warmup=1)}
     for name in ("line_factor", "line_solve"):
-        t = out[name] = {"ms": times[name], "plain_ms": plain_ms[name],
-                         "bound": bounds[name]}
+        top = out["by_level"][0][name]
+        t = out[name] = {"ms": top["ms"], "call_ms": top["call_ms"],
+                         "plain_ms": plain_ms[name],
+                         "bound": (top["bound_ms"], top["bound_by"])}
         log(f"phase 14a: {name} at NY={NY}, NX={NX}, float64: kernel "
-            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, bound "
-            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]})")
+    return out
+
+
+def factor_chain_floor(records):
+    """``line_factor``'s chain: its device ms at the coarsest level (NX = 1)
+    of the two hierarchies of phase 14a, NY = 240 and 957; the slope is the
+    chain's ms per row, and the floor at NY = 957 that slope times the 956
+    rows (a recurrence over the rows takes no less)."""
+    pts = []
+    for rec in records:
+        SS, _ = rec.pop("coarsest")
+        pts.append((SS.shape[2], graph_ms(lambda: klmg.line_factor(SS))))
+    (ny0, ms0), (ny1, ms1) = pts
+    per_row = (ms1 - ms0) / (ny1 - ny0)
+    out = {"ms_per_row": per_row, "NY": ny1, "floor_ms": per_row * (ny1 - 1),
+           "coarsest_ms": {str(ny0): ms0, str(ny1): ms1}}
+    log(f"phase 14a: line_factor's chain {1e3 * per_row:.4f} us a row "
+        f"(NX=1: {ms0:.4f} ms at NY={ny0}, {ms1:.4f} ms at NY={ny1}); "
+        f"floor at NY={ny1} {out['floor_ms']:.4f} ms")
     return out
 
 
@@ -1774,6 +1809,7 @@ def run_linemg(device, tmp, ref_levels=2, refs=True, pointblock_iters=None):
         del bks, fac
         rec["kernels"] = linemg_kernels_vs_plain(device, hierarchy,
                                                  timing=lv > 0)
+        rec["coarsest"] = hierarchy[-1]
         del hierarchy
         if lv == 0 and pointblock_iters is not None:
             rec["pointblock"] = {"inner_iters": pointblock_iters,
@@ -1787,6 +1823,8 @@ def run_linemg(device, tmp, ref_levels=2, refs=True, pointblock_iters=None):
                   + ("newton", "total")}, 0.0)
         records.append(rec)
         del c, blocks, R, A
+    chain = factor_chain_floor(records)
+    records[-1]["kernels"]["line_factor"]["chain"] = chain
     return records
 
 
@@ -3257,7 +3295,12 @@ def main():
                  + scripts["launches"][name],
                  lm_err[key], [lm[name]["ms"]], [lm[name]["plain_ms"]],
                  lm[name]["bound"], levels=lm["levels"], NY=lm["NY"],
-                 NX=lm["NX"], launches_16a=scripts["launches"][name])
+                 NX=lm["NX"], launches_16a=scripts["launches"][name],
+                 call_ms=lm[name]["call_ms"],
+                 by_level=[{"NX": lv["NX"], **lv[name]}
+                           for lv in lm["by_level"]],
+                 **({"chain": lm[name]["chain"]} if "chain" in lm[name]
+                    else {}))
           for name, line, key in (("line_factor", 157, "factor_and_solve"),
                                   ("line_solve", 192, "solve"))],
         record("sumfact_zchain", "sumfact_zchain.cu",

@@ -5,8 +5,10 @@ PyTorch version beside it on a CPU tensor; kernels build at first use.
 
 The package also holds what a kernel's device time is read against: the
 H100 SXM's memory and arithmetic rates (NVIDIA's data sheet), ``bound``
-(the least time the card could take for a given work) and ``median_ms``
-(device ms of a call between CUDA events)."""
+(the least time the card could take for a given work), ``median_ms``
+(ms of a call between CUDA events, the host's enqueue included where the
+card waits for it) and ``graph_ms`` (device ms of a call replayed from a
+CUDA graph)."""
 
 from __future__ import annotations
 
@@ -44,3 +46,30 @@ def median_ms(fn, reps=50, warmup=10):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def graph_ms(fn, calls=10, reps=20):
+    """Median device ms per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed between two events, so the host's enqueue time
+    (the wrapper's checks, ctypes) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ts = []
+    for _ in range(reps + 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(ts[2:])

@@ -5,8 +5,13 @@ wrappers + plain versions.
 of the canonical (3, 3, NY, NX, 2, 2) stencil by block-QR elimination and
 returns (R, C1, E, Q, Qf, Rf); ``line_solve(fac, r)`` solves the columns'
 systems for r (NY, NX, 2).  On CUDA tensors each launches a hand-written
-kernel of ``csrc/linemg.cu``, one thread per column; on CPU tensors they run
-``line_factor_plain`` and ``line_solve_plain``, ports of the JAX package's
+kernel of ``csrc/linemg.cu``: the factorization one chain thread per
+column, fed and drained by a second warp through shared-memory rings; the
+solve one cluster of blocks per column (``solve_geometry``), its forward
+sweep a parallel scan and its backward sweep one walk over the rows staged
+in shared memory (past 4,097 rows in float64, some in device memory).  On
+CPU tensors they run ``line_factor_plain`` and
+``line_solve_plain``, ports of the JAX package's
 ``cmfem_tpu/solvers/linemg.py::line_factor`` and ``line_solve``.  No TPU
 kernel stands behind them (the JAX package leaves the scans to XLA): the
 kernels exist because the plain versions' row loops are launch-bound on
@@ -20,7 +25,7 @@ import functools
 
 import torch
 
-from . import F64_FLOP_PER_S, bound, median_ms
+from . import F64_FLOP_PER_S, bound, graph_ms, median_ms
 from .build import load_library
 
 LIB_NAME = "cmfem_linemg"
@@ -30,6 +35,38 @@ SOURCES = ["linemg.cu"]
 # count.
 launches_factor = 0
 launches_solve = 0
+
+# line_solve's launch geometry, as csrc/linemg.cu::solve_geometry has it
+SOLVE_THREADS = 128      # a block
+CARD_SMS = 132           # the H100 SXM
+MAX_CLUSTER = 8          # the portable cluster size
+
+
+def solve_geometry(NY, NX, itemsize):
+    """(threads, cluster, seg, run) of ``line_solve``'s kernel on an NY x NX
+    lattice of ``itemsize``-byte elements: each column is a cluster of
+    ``cluster`` blocks of ``threads`` threads; block k owns the rows
+    [k seg, (k+1) seg) of the NY - 1 factor rows, and thread t of it the
+    run [t run, (t+1) run) of those.  Shared memory holds 32 / itemsize
+    rows of a run (71,680 bytes a block: three blocks an SM); the cluster
+    is the fewest blocks that hold the column, raised to one block an SM
+    when NX is small, but never beyond one row a thread or
+    ``MAX_CLUSTER``.  A column that ``MAX_CLUSTER`` blocks do not stage
+    (NY > 4,097 in float64, 8,193 in float32) takes as many blocks as one
+    wave of the card holds, and its runs' further rows stay in device
+    memory.  ``kernel_solve_geometry`` reads the built kernel's own rule."""
+    rows = NY - 1
+    if rows <= 0:
+        return SOLVE_THREADS, 1, 0, 0
+    run_max = 32 // itemsize
+    fit = -(-rows // (SOLVE_THREADS * run_max))
+    if fit <= MAX_CLUSTER:
+        cluster = max(fit, min(MAX_CLUSTER, max(1, CARD_SMS // NX),
+                               -(-rows // SOLVE_THREADS)))
+    else:  # as many blocks as one wave of the card holds (three an SM)
+        cluster = min(MAX_CLUSTER, max(1, 3 * CARD_SMS // NX))
+    seg = -(-rows // cluster)
+    return SOLVE_THREADS, cluster, seg, -(-seg // SOLVE_THREADS)
 
 
 def line_factor_plain(SS):
@@ -59,6 +96,9 @@ def line_factor_plain(SS):
         Qs.append(Q)
         Dc, Cc = right[:, 2:, :2], right[:, 2:, 2:]
     Qf, Rf = torch.linalg.qr(Dc, mode="complete")
+    if NY == 1:  # no rows to eliminate, as JAX's scan of length 0
+        return (*(A_d.new_zeros((0, NX, 2, 2)) for _ in range(3)),
+                A_d.new_zeros((0, NX, 4, 4)), Qf, Rf)
     return (torch.stack(Rs), torch.stack(C1s), torch.stack(Es),
             torch.stack(Qs), Qf, Rf)
 
@@ -113,6 +153,17 @@ def build():
     _lib()
 
 
+def kernel_solve_geometry(NY, NX, itemsize):
+    """``solve_geometry`` as the built kernel has it
+    (``csrc/linemg.cu::solve_geometry``, which launches ``line_solve``)."""
+    fn = _lib().cmfem_line_solve_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    g = (ctypes.c_int * 4)()
+    fn(NY, NX, itemsize, g)
+    return tuple(g)
+
+
 def _check(name, tensors, dtype, device):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {dtype} not supported")
@@ -122,6 +173,9 @@ def _check(name, tensors, dtype, device):
                              f"expected {device} in {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: a tensor is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a tensor is not 16-byte aligned "
+                             "(the kernels' bulk copies need it)")
 
 
 def _launch(fn, args, device):
@@ -202,10 +256,26 @@ def bounds(NY, NX, itemsize):
                                 56 * rows, F64_FLOP_PER_S)}
 
 
-def device_ms(SS, fac, r, reps=5, warmup=1):
-    """{kernel: median device ms per call}: ``line_factor(SS)`` and
-    ``line_solve(fac, r)`` on CUDA tensors, between CUDA events.  These
-    calls count as launches: read a path's counters before timing."""
-    return {"line_factor": median_ms(lambda: line_factor(SS), reps, warmup),
-            "line_solve": median_ms(lambda: line_solve(fac, r), reps,
-                                    warmup)}
+def level_times(SS, fac, r):
+    """{kernel: {"ms", "call_ms", "bound_ms", "bound_by"}} of
+    ``line_factor(SS)`` and ``line_solve(fac, r)`` on CUDA tensors at one
+    level of a hierarchy: ``ms`` the median device ms per call, 10 calls
+    replayed from a CUDA graph (``kernels.graph_ms``: the wrappers' host
+    work is not in it); ``call_ms`` the median ms of one wrapper call
+    between CUDA events, the device time plus what the card waits for the
+    host's enqueue (the wrapper's checks, ctypes), as a V-cycle sees it;
+    the bound from ``bounds``.  These calls count as launches: read a
+    path's counters before timing."""
+    calls = {"line_factor": lambda: line_factor(SS),
+             "line_solve": lambda: line_solve(fac, r)}
+    bnd = bounds(SS.shape[2], SS.shape[3], SS.element_size())
+    return {k: {"ms": graph_ms(fn), "call_ms": median_ms(fn, 20, 3),
+                "bound_ms": bnd[k][0], "bound_by": bnd[k][1]}
+            for k, fn in calls.items()}
+
+
+def describe(times):
+    """One line of ``level_times``' figures."""
+    return ", ".join(f"{k} {t['ms']:.4f} ms (a call {t['call_ms']:.4f} ms; "
+                     f"bound {t['bound_ms']:.5f} ms, {t['bound_by']})"
+                     for k, t in times.items())

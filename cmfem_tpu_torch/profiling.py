@@ -47,6 +47,14 @@ order-2 elements:
   rtol 1e-12 with the line-multigrid and the point-block preconditioners:
   inner iterations, set-up and solve time, the true residual and the
   direction against the block-tridiagonal direct solve;
+- the line-multigrid kernels at every level of that system's hierarchy
+  (section ``linemg_levels``; the strip refined 0, 2 and 3 times): each
+  level's NY x NX, ``line_factor`` and ``line_solve`` device ms per call
+  (a replayed CUDA graph, median of 20) and ms per call (CUDA events
+  around one call, the host's enqueue included) beside their bounds,
+  float64; the same on seeded line systems as tall as the strip refined 5
+  times (section ``linemg_tall``, NY = 7,649, where the solve's rows reach
+  past shared memory), with their line residual;
 - one step of the ablation case-2.1 driver (section ``ablation_case21``) on
   the same strip with the synthetic B' table and the schedule fixture,
   through the eager host-LU path and ``scan_stepping``, differenced as
@@ -513,6 +521,71 @@ def profile_linemg(n, dev, rng, out, ref_levels=(0, 2)):
             torch.cuda.empty_cache()
 
 
+def profile_linemg_levels(n, dev, rng, out, ref_levels=(0, 2, 3)):
+    """``line_factor`` and ``line_solve`` at every level of the line-MG
+    hierarchy of the first Newton system on the strip refined
+    ``ref_levels`` times: device ms per call and ms per call beside the
+    bound (``kernels.linemg.level_times``), float64."""
+    from .apps import ablation_case1
+    from .kernels import linemg as klmg
+    from .solvers.blocksolve import BlockNewtonKrylov, strip_dof_lattice
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for lv in ref_levels:
+            c, blocks, _ = first_newton_system(dev, tmp, lv, f"lvl{lv}")
+            bks = BlockNewtonKrylov(
+                c.fes.element_dofs, c.n, c.ess, c.ess,
+                dof_lattice=strip_dof_lattice(c.fes.node_positions),
+                pc="linemg", device=dev)
+            hierarchy = bks.prepare(blocks)[1]
+            for level, (SS, fac) in enumerate(hierarchy):
+                NY, NX = SS.shape[2], SS.shape[3]
+                r = torch.as_tensor(rng.standard_normal((NY, NX, 2)),
+                                    device=dev)
+                out(f"== line-MG level {level} of {len(hierarchy)}, "
+                    f"{2 * c.n} DOFs (strip refined {lv}x), NY={NY}, "
+                    f"NX={NX}, float64: "
+                    + klmg.describe(klmg.level_times(SS, fac, r)))
+            c.finish({k: 0.0 for k in ablation_case1.TIMING_KEYS
+                      + ("newton", "total")}, 0.0)
+            del c, blocks, bks, hierarchy
+            torch.cuda.empty_cache()
+
+
+def profile_linemg_tall(n, dev, rng, out,
+                        shapes=((4097, 1), (7649, 1), (7649, 353))):
+    """``line_factor`` and ``line_solve`` on seeded, block-diagonally
+    dominant line systems (fields of scale 1 and 1e-3) as tall as the
+    strip refined 5 times (NY = 7,649; its finest NX 353, and NX = 1),
+    where the solve's runs reach past shared memory in float64, and at NY
+    = 4,097, the most it holds: the launch geometry, device ms and ms a
+    call beside the bound (``kernels.linemg.level_times``) and the line
+    residual |A_line x - r| / |r|, float64."""
+    from .kernels import linemg as klmg
+    from .solvers.linemg import line_residual
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for NY, NX in shapes:
+        SS = torch.zeros((3, 3, NY, NX, 2, 2), dtype=torch.float64,
+                         device=dev)
+        scale = torch.tensor([1.0, 1e-3], dtype=torch.float64,
+                             device=dev)[:, None]
+        eye = torch.eye(2, dtype=torch.float64, device=dev)
+        for oy, diag in ((0, -1.0), (1, 4.0), (2, -1.0)):
+            SS[oy, 1] = (diag * eye + 0.3 * torch.randn(
+                (NY, NX, 2, 2), generator=gen, dtype=torch.float64,
+                device=dev)) * scale
+        r = torch.randn((NY, NX, 2), generator=gen, dtype=torch.float64,
+                        device=dev)
+        fac = klmg.line_factor(SS)
+        res = line_residual(SS, klmg.line_solve(fac, r), r)
+        out(f"== line kernels at NY={NY}, NX={NX}, float64, geometry "
+            f"{klmg.kernel_solve_geometry(NY, NX, 8)}: line residual "
+            f"{res:.3e}; " + klmg.describe(klmg.level_times(SS, fac, r)))
+        del SS, fac, r
+        torch.cuda.empty_cache()
+
+
 def profile_ablation_case21(n, dev, rng, out, nx=11, ny=239):
     """One step of the ablation case-2.1 driver on chip_smoke's phase-12
     strip (11 x 239 quads, 5,760 DOFs) with the synthetic deck, B' table
@@ -716,6 +789,8 @@ SECTIONS = {"operators": profile_operators, "vcycle": profile_vcycle,
             "nonlinear": profile_nonlinear,
             "elasticity_cg": profile_elasticity_cg,
             "ablation": profile_ablation, "linemg": profile_linemg,
+            "linemg_levels": profile_linemg_levels,
+            "linemg_tall": profile_linemg_tall,
             "ablation_case21": profile_ablation_case21,
             "ablation_case22": profile_ablation_case22}
 

@@ -167,20 +167,20 @@ def solvers_of(fes, ess, lat, lvl, restart, maxiter, pointblock_max_refine,
 
 def line_kernel_ms(arrs, device):
     """The finest level's ``line_factor`` and ``line_solve``: device ms per
-    call and bound ms (``kernels.linemg.device_ms`` and ``bounds``).  These
-    launches are not the study's: its counts are read before."""
+    call, ms of one call between CUDA events and bound ms
+    (``kernels.linemg.level_times``).  These launches are not the study's:
+    its counts are read before."""
     from ..kernels import linemg as klmg
 
     SS, fac = arrs[0]
     NY, NX = SS.shape[2], SS.shape[3]
     gen = torch.Generator(device=device).manual_seed(0)
     r = torch.randn(NY, NX, 2, dtype=SS.dtype, device=device, generator=gen)
-    times = klmg.device_ms(SS, fac, r, reps=20, warmup=3)
-    out = {}
-    for name, (ms, by) in klmg.bounds(NY, NX, SS.element_size()).items():
-        out.update({f"{name}_ms": times[name], f"{name}_bound_ms": ms,
-                    f"{name}_bound_by": by})
-    return out
+    return {f"{name}_{key}": v
+            for name, t in klmg.level_times(SS, fac, r).items()
+            for key, v in (("ms", t["ms"]), ("call_ms", t["call_ms"]),
+                           ("bound_ms", t["bound_ms"]),
+                           ("bound_by", t["bound_by"]))}
 
 
 def run_study(refinements=(0, 1, 2, 3), rtol=1e-6, dt=0.0025, restart=400,

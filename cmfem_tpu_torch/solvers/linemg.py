@@ -20,10 +20,10 @@ The cycle is a fixed linear operator (static sweep counts), so it is a
 valid left preconditioner for the non-flexible GMRES of ``solvers.krylov``;
 ``BlockNewtonKrylov(pc="linemg")`` uses it.  ``line_factor`` and
 ``line_solve`` (the block-QR elimination down every column's rows and its
-two sweeps) are ``kernels.linemg``'s: on CUDA tensors a hand-written kernel,
-one thread per column (the JAX package's ``lax.scan``s as Python loops of
-tiny launches took 9.4 s per factorization and 1.3 s per apply at 86,130
-DOFs on the H100); on CPU tensors their plain versions, the scans as
+two sweeps) are ``kernels.linemg``'s: on CUDA tensors hand-written kernels,
+one launch a call (the JAX package's ``lax.scan``s as Python loops of tiny
+launches took 9.4 s per factorization and 1.3 s per apply at 86,130 DOFs
+on the H100); on CPU tensors their plain versions, the scans as
 Python loops over the rows with ``torch.linalg.qr`` and
 ``torch.linalg.solve_triangular`` for ``jnp.linalg.qr`` and
 ``jax.scipy.linalg.solve_triangular``.  QR factors may differ in sign
@@ -90,6 +90,15 @@ def stencil_matvec(SS, z):
             w = zp[oy:oy + NY, ox:ox + NX]
             out = out + torch.einsum("yxab,yxb->yxa", SS[oy, ox], w)
     return out
+
+
+def line_residual(SS, x, r):
+    """|A_line x - r| / |r| of the y-line systems: the ox = 0 blocks of the
+    canonical stencil SS."""
+    line = torch.zeros_like(SS)
+    line[:, 1] = SS[:, 1]
+    return float(torch.linalg.vector_norm(stencil_matvec(line, x) - r)
+                 / torch.linalg.vector_norm(r))
 
 
 def semicoarsen_x(SS):
