@@ -26,7 +26,10 @@ loops, but no float32 run is offered.  ``sharding_devices: N`` and
 the Newton iterate distributed (``apps.distributed``; rank 0 writes the
 files).  ``run`` returns the JAX driver's keys plus ``converged``,
 ``timing`` (per step: residual, jacobian, factorization, linear, update,
-state, output, total seconds) and ``newton_iters`` (linear solves per
+state, output, total seconds; ``step_wall``, the step's whole wall time;
+``host_syncs``, the times the step made the host wait for the device; the
+first row's ``run_setup`` and the last row's ``run_finish``, the run's
+set-up and finish in seconds) and ``newton_iters`` (linear solves per
 step).
 """
 
@@ -50,7 +53,7 @@ from .common import (
 )
 from .distributed import DistributedNewton, run_on_ranks
 from ..io import CsvWriter, VTUCollection, writes_files
-from ..utils.timing import StepTimer
+from ..utils.timing import StepTimer, host_copy, host_sync
 from ..utils.yamlcfg import load_yaml, resolve_path
 
 
@@ -274,6 +277,7 @@ class Case1:
             self._rows_cols = (
                 np.concatenate([rows_b, rows_b, rows_b + n, rows_b + n]),
                 np.concatenate([cols_b, cols_b + n, cols_b, cols_b + n]))
+            host_sync()
             rows_f, cols_f = pattern(self.sys.trace.eldofs.cpu().numpy())
             self._face_rows_cols = (np.concatenate([rows_f, rows_f]),
                                     np.concatenate([cols_f, cols_f + n]))
@@ -282,6 +286,7 @@ class Case1:
             blocks = tuple(blocks) + tuple(face)
             rows = np.concatenate([rows, self._face_rows_cols[0]])
             cols = np.concatenate([cols, self._face_rows_cols[1]])
+        host_sync()
         vals = torch.cat([b.reshape(-1) for b in blocks]).cpu().numpy()
         J = sp.coo_matrix((vals, (rows, cols)),
                           shape=(2 * n, 2 * n)).tocsr()
@@ -297,7 +302,9 @@ class Case1:
 
         class _LU:
             def solve(self, rhs):
+                host_sync()
                 x = lu.solve(rhs.cpu().numpy())
+                host_copy(x, rhs.device)
                 return torch.as_tensor(x, dtype=rhs.dtype, device=rhs.device)
 
         return _LU()
@@ -311,7 +318,9 @@ class Case1:
 
     def enforce_bc(self, T, p, Tbc):
         T, p = T.clone(), p.clone()
+        host_copy(Tbc, T.device)
         T[self.ess_t] = Tbc
+        host_copy(self.top_pressure, p.device)
         p[self.ess_t] = self.top_pressure
         return T, p
 
@@ -339,6 +348,7 @@ class Case1:
     def save_frame(self, step, t, T, p, st):
         if self.dc is None or step % self.output_every:
             return
+        host_sync(2)
         fields = {
             "temperature": T.cpu().numpy(), "pressure": p.cpu().numpy(),
             "tau": st.tau_elem, "rho_s": st.rho_elem,
@@ -391,117 +401,138 @@ def _run(cfg, device, dtype, option=None, nranks=0):
     """The eager path: the host loop of one process, or of one rank of a
     world of ``nranks`` (``option``: ``apps.distributed``)."""
     run_t0 = _time.perf_counter()
-    c = Case1(cfg, device, dtype)
-    sys_, ops, n = c.sys, c.ops, c.n
-    newton_cfg = load_newton_config(cfg)
-    newton_print_level = int(cfg.get("newton_print_level", 1))
-    rebuild_freq = max(1, int(cfg.get("newton_jacobian_rebuild_freq", 1)))
-    jacobian_check = bool(cfg.get("jacobian_check", False))
-    jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
-    jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
-
-    dn = inst = None
-    if nranks:
-        # the Newton iterate distributed over the world; the step's
-        # old-state slabs are taken at each step start
-        iter_factory = dn = DistributedNewton(option, nranks, sys_, c.ess,
-                                              c.ess, cfg, device)
-        inst = dn.get()
-    else:
-        iter_factory = make_block_linear_solver(
-            cfg, c.fes.element_dofs, n, c.ess, c.ess,
-            node_positions=c.fes.node_positions, device=device)
     timer = StepTimer(sync=device_sync(device))
+    with timer.span("run_setup"):
+        c = Case1(cfg, device, dtype)
+        sys_, ops, n = c.sys, c.ops, c.n
+        newton_cfg = load_newton_config(cfg)
+        newton_print_level = int(cfg.get("newton_print_level", 1))
+        rebuild_freq = max(1, int(cfg.get("newton_jacobian_rebuild_freq",
+                                          1)))
+        jacobian_check = bool(cfg.get("jacobian_check", False))
+        jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
+        jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
 
-    def residual(T, p, T_old_q, p_old_q, X_old, dt):
-        if dn is not None:
-            return dn.residual(inst, T, p, dt)
-        return c.residual(T, p, T_old_q, p_old_q, X_old, dt)
+        dn = inst = None
+        if nranks:
+            # the Newton iterate distributed over the world; the step's
+            # old-state slabs are taken at each step start
+            iter_factory = dn = DistributedNewton(option, nranks, sys_, c.ess,
+                                                  c.ess, cfg, device)
+            inst = dn.get()
+        else:
+            iter_factory = make_block_linear_solver(
+                cfg, c.fes.element_dofs, n, c.ess, c.ess,
+                node_positions=c.fes.node_positions, device=device)
 
-    def factorize(T, p, T_old_q, p_old_q, X_old, dt):
-        if dn is not None:
+        def residual(T, p, T_old_q, p_old_q, X_old, dt):
+            if dn is not None:
+                return dn.residual(inst, T, p, dt)
+            return c.residual(T, p, T_old_q, p_old_q, X_old, dt)
+
+        def factorize(T, p, T_old_q, p_old_q, X_old, dt):
+            if dn is not None:
+                with timer.phase("jacobian"):
+                    return dn.factorize(inst, T, p, dt)
             with timer.phase("jacobian"):
-                return dn.factorize(inst, T, p, dt)
-        with timer.phase("jacobian"):
-            blocks = sys_.element_jacobians(T, p, T_old_q, p_old_q, X_old,
-                                            dt)
-        with timer.phase("factorization"):
-            if iter_factory is not None:
-                return iter_factory(blocks)
-            return c.host_lu(blocks)
+                blocks = sys_.element_jacobians(T, p, T_old_q, p_old_q,
+                                                X_old, dt)
+            with timer.phase("factorization"):
+                if iter_factory is not None:
+                    return iter_factory(blocks)
+                return c.host_lu(blocks)
 
-    T, p = c.initial_fields()
-    state = c.initial_state()
+        T, p = c.initial_fields()
+        state = c.initial_state()
 
-    def write_outputs(step, t):
-        mdot = float(sys_.top_boundary_mass_flux(T, p, state))
-        c.write_rows(t, c.probes(T).cpu().numpy(), mdot, state.tau_elem)
-        c.save_frame(step, t, T, p, state)
+        def write_outputs(step, t):
+            host_sync()
+            mdot = float(sys_.top_boundary_mass_flux(T, p, state))
+            host_sync()
+            c.write_rows(t, c.probes(T).cpu().numpy(), mdot, state.tau_elem)
+            c.save_frame(step, t, T, p, state)
 
-    write_outputs(0, 0.0)
-    print(f"Time steps: {c.nsteps}, nominal final time: {c.nsteps * c.dt}")
+        write_outputs(0, 0.0)
+        print(f"Time steps: {c.nsteps}, nominal final time: "
+              f"{c.nsteps * c.dt}")
+    # the rows are the steps': what the set-up counted is dropped
+    timer.step_reset()
     t = 0.0
     timing, newton_iters, krylov = [], [], []
     for step in range(1, c.nsteps + 1):
-        t_next = min(c.t_final, t + c.dt)
-        dt_step = t_next - t
-        t = t_next
-        X_old = state.extent
-        with timer.phase("state"):
-            T_old_q = ops.values_at_qp(T)
-            p_old_q = ops.values_at_qp(p)
-            if dn is not None:
-                dn.set_step(inst, T_old_q, p_old_q, X_old)
-        with timer.phase("bc"):
-            Tbc = evaluate_schedule(c.schedule, t)
-            T, p = c.enforce_bc(T, p, Tbc)
+        with timer.span("step"):
+            t_next = min(c.t_final, t + c.dt)
+            dt_step = t_next - t
+            t = t_next
+            X_old = state.extent
+            with timer.phase("state"):
+                T_old_q = ops.values_at_qp(T)
+                p_old_q = ops.values_at_qp(p)
+                if dn is not None:
+                    dn.set_step(inst, T_old_q, p_old_q, X_old)
+            with timer.phase("bc"):
+                Tbc = evaluate_schedule(c.schedule, t)
+                T, p = c.enforce_bc(T, p, Tbc)
 
-        if jacobian_check and step == 1:
-            rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                      dt_step, abs_tol=jc_abs, rel_tol=jc_rel)
-            print(f"jacobian_check passed (max rel err {rel:.3e})")
+            if jacobian_check and step == 1:
+                rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
+                                          dt_step, abs_tol=jc_abs,
+                                          rel_tol=jc_rel)
+                print(f"jacobian_check passed (max rel err {rel:.3e})")
 
-        nsolve0 = len(iter_factory.results) if iter_factory else 0
-        T, p, iters, ntim = run_tp_newton_loop(
-            T, p,
-            residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X_old,
-                                           dt_step),
-            factorize=lambda T, p: factorize(T, p, T_old_q, p_old_q, X_old,
-                                             dt_step),
-            enforce_bc=lambda T, p: c.enforce_bc(T, p, Tbc),
-            newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
-            newton_csv=c.newton_csv, step=step, t=t, n=n,
-            print_level=newton_print_level)
-        rec = timer.step_reset()
-        # the loop's Jacobian time holds the Jacobian and the factorization,
-        # timed apart inside factorize
-        rec.update(residual=ntim["nres"], linear=ntim["nlin"],
-                   update=ntim["nupd"])
-        with timer.phase("state"):
-            state = sys_.advance_state(state, T, p, dt_step)
-        with timer.phase("output"):
-            write_outputs(step, t)
-        rec.update({k: rec.get(k, 0.0) + v
-                    for k, v in timer.step_reset().items()})
-        timing.append(c.timing_row(step, rec))
-        newton_iters.append(iters)
-        if iter_factory is not None:
-            krylov.append([r.inner_iters
-                           for r in iter_factory.results[nsolve0:]])
-        if step <= 5 or step % 50 == 0 or step == c.nsteps:
-            print(f"step={step} t={t:g} newton_iters={iters} "
-                  f"Tmax={float(torch.max(T)):.1f} "
-                  f"tau_min={state.tau_elem.min():.4f}")
+            nsolve0 = len(iter_factory.results) if iter_factory else 0
+            T, p, iters, ntim = run_tp_newton_loop(
+                T, p,
+                residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X_old,
+                                               dt_step),
+                factorize=lambda T, p: factorize(T, p, T_old_q, p_old_q,
+                                                 X_old, dt_step),
+                enforce_bc=lambda T, p: c.enforce_bc(T, p, Tbc),
+                newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
+                newton_csv=c.newton_csv, step=step, t=t, n=n,
+                timer=timer, print_level=newton_print_level)
+            rec = timer.step_reset()
+            # the loop's Jacobian time holds the Jacobian and the
+            # factorization, timed apart inside factorize
+            rec.update(residual=ntim["nres"], linear=ntim["nlin"],
+                       update=ntim["nupd"])
+            with timer.phase("state"):
+                state = sys_.advance_state(state, T, p, dt_step)
+            with timer.phase("output"):
+                write_outputs(step, t)
+            if step <= 5 or step % 50 == 0 or step == c.nsteps:
+                host_sync()
+                print(f"step={step} t={t:g} newton_iters={iters} "
+                      f"Tmax={float(torch.max(T)):.1f} "
+                      f"tau_min={state.tau_elem.min():.4f}")
+            rec.update({k: rec.get(k, 0.0) + v
+                        for k, v in timer.step_reset().items()})
+            timing.append(c.timing_row(step, rec))
+            newton_iters.append(iters)
+            if iter_factory is not None:
+                krylov.append([r.inner_iters
+                               for r in iter_factory.results[nsolve0:]])
+        rec["step_wall"] = timer.spans["step"]
 
-    totals = {k: sum(r.get(k, 0.0) for r in timing)
-              for k in TIMING_KEYS + ("newton", "total")}
-    c.finish(totals, _time.perf_counter() - run_t0)
-    out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
-           "fes": c.fes, "mesh": c.mesh, "converged": True,
-           "timing": timing, "newton_iters": newton_iters}
+    with timer.span("run_finish"):
+        totals = {k: sum(r.get(k, 0.0) for r in timing)
+                  for k in TIMING_KEYS + ("newton", "total")}
+        c.finish(totals, _time.perf_counter() - run_t0)
+        out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
+               "fes": c.fes, "mesh": c.mesh, "converged": True,
+               "timing": timing, "newton_iters": newton_iters}
+    _run_spans(timing, timer)
     if iter_factory is not None:
         out["krylov_iters"] = krylov
     return out
+
+
+def _run_spans(timing, timer):
+    """The run's set-up into its first timing row and its finish into its
+    last (seconds)."""
+    if timing:
+        timing[0]["run_setup"] = timer.spans["run_setup"]
+        timing[-1]["run_finish"] = timer.spans["run_finish"]
 
 
 def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
@@ -515,32 +546,38 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
 
     device = resolve_device(device)
     run_t0 = _time.perf_counter()
-    c = Case1(cfg, device, dtype)
-    sys_, ops, n = c.sys, c.ops, c.n
-    abs_tol = float(cfg.get("newton_abs_tol", 1e-8))
-    rel_tol = float(cfg.get("newton_rel_tol", 1e-6))
-    max_iter = int(cfg.get("newton_max_iter", 20))
-    stall_kw = dict(
-        stall_improve=float(cfg.get("newton_stall_improve", 1e-3)),
-        stall_patience=int(cfg.get("newton_stall_patience", 2)),
-        stall_accept_rel=float(cfg.get("newton_stall_accept_rel", 1e-3)),
-        stall_dx_rtol=cfg.get("newton_stall_dx_rtol", None),
-        stall_flat_factor=float(cfg.get("newton_stall_flat_factor", 1.15)))
-    lin_rtol = float(cfg.get("linear_rtol", 1.0e-10))
-    bks = make_scan_block_solver(cfg, c.fes.element_dofs, n, c.ess, c.ess,
-                                 c.fes.node_positions, device=device)
-    print(f"scan_stepping: linear solver {type(bks).__name__}")
-    t_edges = np.minimum(c.t_final, c.dt * np.arange(c.nsteps + 1))
-    print(f"Time steps: {c.nsteps}, nominal final time: {t_edges[-1]}")
     timer = StepTimer(sync=device_sync(device))
+    with timer.span("run_setup"):
+        c = Case1(cfg, device, dtype)
+        sys_, ops, n = c.sys, c.ops, c.n
+        abs_tol = float(cfg.get("newton_abs_tol", 1e-8))
+        rel_tol = float(cfg.get("newton_rel_tol", 1e-6))
+        max_iter = int(cfg.get("newton_max_iter", 20))
+        stall_kw = dict(
+            stall_improve=float(cfg.get("newton_stall_improve", 1e-3)),
+            stall_patience=int(cfg.get("newton_stall_patience", 2)),
+            stall_accept_rel=float(cfg.get("newton_stall_accept_rel", 1e-3)),
+            stall_dx_rtol=cfg.get("newton_stall_dx_rtol", None),
+            stall_flat_factor=float(cfg.get("newton_stall_flat_factor",
+                                            1.15)))
+        lin_rtol = float(cfg.get("linear_rtol", 1.0e-10))
+        bks = make_scan_block_solver(cfg, c.fes.element_dofs, n, c.ess,
+                                     c.ess, c.fes.node_positions,
+                                     device=device)
+        print(f"scan_stepping: linear solver {type(bks).__name__}")
+        t_edges = np.minimum(c.t_final, c.dt * np.arange(c.nsteps + 1))
+        print(f"Time steps: {c.nsteps}, nominal final time: {t_edges[-1]}")
 
-    T, p = c.initial_fields()
-    state = c.initial_state()
-    X = state.extent
-    arrays = None
-    c.write_rows(0.0, c.probes(T).cpu().numpy(),
-                 sys_.top_boundary_mass_flux(T, p, state), state.tau_elem)
-    c.save_frame(0, 0.0, T, p, state)
+        T, p = c.initial_fields()
+        state = c.initial_state()
+        X = state.extent
+        arrays = None
+        c.write_rows(0.0, c.probes(T).cpu().numpy(),
+                     sys_.top_boundary_mass_flux(T, p, state),
+                     state.tau_elem)
+        c.save_frame(0, 0.0, T, p, state)
+    # the rows are the steps': what the set-up counted is dropped
+    timer.step_reset()
 
     def residual(T, p, T_old_q, p_old_q, X, dt):
         with timer.phase("residual"):
@@ -564,61 +601,72 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
     timing, newton_iters, krylov, frame = [], [], [], []
     stall_stats = NewtonStallStats()
     for step in range(1, c.nsteps + 1):
-        t, dt = float(t_edges[step]), float(t_edges[step] - t_edges[step - 1])
-        with timer.phase("state"):
-            T_old_q = ops.values_at_qp(T)
-            p_old_q = ops.values_at_qp(p)
-        with timer.phase("bc"):
-            Tbc = evaluate_schedule(c.schedule, t)
-            T, p = c.enforce_bc(T, p, Tbc)
-        krylov_step = []
-        (T, p, it, r0, rn, done, res_h, upd_h, lin_ok,
-         nw_stalled) = scan_newton(
-            T, p,
-            residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X, dt),
-            solve=make_solve(T_old_q, p_old_q, X, dt, Tbc),
-            abs_tol=abs_tol, rel_tol=rel_tol, max_iter=max_iter, **stall_kw)
-        if not lin_ok:
-            raise RuntimeError(
-                f"block GMRES did not converge at step {step} "
-                "(raise gmres_restart/gmres_maxiter)")
-        if not done:
-            raise RuntimeError(f"Newton did not converge at step {step}, "
-                               f"final residual={float(rn)}")
-        with timer.phase("state"):
-            arrays = sys_.advance_state_arrays(X, T, p, dt)
-            X = arrays[0]
-        with timer.phase("output"):
-            frame.append((step, t, Tbc, c.probes(T),
-                          sys_.top_boundary_mass_flux(T, p, X), arrays[1],
-                          it, r0, rn, res_h, upd_h, nw_stalled))
-            if step % c.output_every == 0 or step == c.nsteps:
-                _flush_frame(c, frame, stall_stats)
-                frame = []
-                state = sys_.state_from_arrays(*arrays)
-                c.save_frame(step, t, T, p, state)
-        timing.append(c.timing_row(step, timer.step_reset()))
-        newton_iters.append(it - 1)
-        krylov.append(krylov_step)
+        with timer.span("step"):
+            t = float(t_edges[step])
+            dt = float(t_edges[step] - t_edges[step - 1])
+            with timer.phase("state"):
+                T_old_q = ops.values_at_qp(T)
+                p_old_q = ops.values_at_qp(p)
+            with timer.phase("bc"):
+                Tbc = evaluate_schedule(c.schedule, t)
+                T, p = c.enforce_bc(T, p, Tbc)
+            krylov_step = []
+            (T, p, it, r0, rn, done, res_h, upd_h, lin_ok,
+             nw_stalled) = scan_newton(
+                T, p,
+                residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X,
+                                               dt),
+                solve=make_solve(T_old_q, p_old_q, X, dt, Tbc),
+                abs_tol=abs_tol, rel_tol=rel_tol, max_iter=max_iter,
+                **stall_kw)
+            if not lin_ok:
+                raise RuntimeError(
+                    f"block GMRES did not converge at step {step} "
+                    "(raise gmres_restart/gmres_maxiter)")
+            if not done:
+                raise RuntimeError(f"Newton did not converge at step {step}"
+                                   f", final residual={float(rn)}")
+            with timer.phase("state"):
+                arrays = sys_.advance_state_arrays(X, T, p, dt)
+                X = arrays[0]
+            with timer.phase("output"):
+                frame.append((step, t, Tbc, c.probes(T),
+                              sys_.top_boundary_mass_flux(T, p, X),
+                              arrays[1], it, r0, rn, res_h, upd_h,
+                              nw_stalled))
+                if step % c.output_every == 0 or step == c.nsteps:
+                    _flush_frame(c, frame, stall_stats)
+                    frame = []
+                    state = sys_.state_from_arrays(*arrays)
+                    c.save_frame(step, t, T, p, state)
+            rec = c.timing_row(step, timer.step_reset())
+            timing.append(rec)
+            newton_iters.append(it - 1)
+            krylov.append(krylov_step)
+        rec["step_wall"] = timer.spans["step"]
 
-    if arrays is not None:
-        state = sys_.state_from_arrays(*arrays)
-    totals = {k: sum(r.get(k, 0.0) for r in timing)
-              for k in TIMING_KEYS + ("newton", "total")}
-    c.finish(totals, _time.perf_counter() - run_t0)
-    wall = totals["total"]
-    print(f"scan_stepping: {c.nsteps} steps in {wall:.2f}s "
-          f"({wall * 1e3 / max(1, c.nsteps):.1f} ms/step)")
-    return {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
-            "fes": c.fes, "mesh": c.mesh, "converged": True,
-            "timing": timing, "newton_iters": newton_iters,
-            "krylov_iters": krylov, "linear_solver": type(bks).__name__,
-            "newton_stall_stats": stall_stats.summary()}
+    with timer.span("run_finish"):
+        if arrays is not None:
+            state = sys_.state_from_arrays(*arrays)
+        totals = {k: sum(r.get(k, 0.0) for r in timing)
+                  for k in TIMING_KEYS + ("newton", "total")}
+        c.finish(totals, _time.perf_counter() - run_t0)
+        out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
+               "fes": c.fes, "mesh": c.mesh, "converged": True,
+               "timing": timing, "newton_iters": newton_iters,
+               "krylov_iters": krylov, "linear_solver": type(bks).__name__,
+               "newton_stall_stats": stall_stats.summary()}
+        wall = totals["total"]
+        print(f"scan_stepping: {c.nsteps} steps in {wall:.2f}s "
+              f"({wall * 1e3 / max(1, c.nsteps):.1f} ms/step)")
+    _run_spans(timing, timer)
+    return out
 
 
 def _flush_frame(c, frame, stall_stats):
     """Read one output frame's per-step rows back from the device and write
     them to the CSVs."""
+    host_sync(8)
     (probes, mdots, taus, r0s, rns, res_hs, upd_hs, stalls) = [
         torch.stack([f[k] for f in frame]).cpu().numpy()
         for k in (3, 4, 5, 7, 8, 9, 10, 11)]

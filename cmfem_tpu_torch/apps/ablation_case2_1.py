@@ -525,7 +525,7 @@ def _run(cfg, device, dtype, option=None, nranks=0):
                                              dt_step, bc, branch),
             enforce_bc=lambda T, p: c.enforce_bc(T, p, bc, t),
             newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
-            newton_csv=c.newton_csv, step=step, t=t, n=n,
+            newton_csv=c.newton_csv, step=step, t=t, n=n, timer=timer,
             print_level=newton_print_level)
         rec = timer.step_reset()
         # the loop's Jacobian time holds the Jacobians and the

@@ -20,6 +20,7 @@ import torch
 from .. import require_cuda
 from ..core import load_gmsh, Mesh
 from ..io import writes_files
+from ..utils.timing import host_sync
 from ..utils.yamlcfg import resolve_path
 
 
@@ -316,6 +317,7 @@ def scan_newton(T, p, *, residual, solve, abs_tol, rel_tol, max_iter,
     res_h = torch.full((max_iter + 1,), float("nan"), dtype=dtype, device=dev)
     upd_h = res_h.clone()
     inf = float("inf")
+    host_sync(5)   # the five numbers below, copied to the device
     r0, rn, rbest, rmax, un_prev = scal(1.0), scal(inf), scal(inf), \
         scal(inf), scal(inf)
     noimp = torch.zeros((), dtype=torch.int64, device=dev)
@@ -344,6 +346,7 @@ def scan_newton(T, p, *, residual, solve, abs_tol, rel_tol, max_iter,
         was_stalled = was_stalled | (stalled & ~tol_done)
         res_h[it] = rn
         it += 1
+        host_sync()
         if bool(tol_done | stalled):
             done = True
             break
@@ -406,7 +409,7 @@ class NewtonStallStats:
 
 def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
                        newton_cfg, rebuild_freq, newton_csv, step, t, n,
-                       print_level=0, print_multiline=True):
+                       timer, print_level=0, print_multiline=True):
     """The Newton loop of the ablation drivers (PetscNewtonSolver::SolveImpl
     semantics: r0 = max(1, |R0|), abs/rel tolerance, Jacobian rebuild
     frequency, BC re-enforcement after every update, per-iteration CSV
@@ -420,10 +423,16 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
     Newton CSV row schema:
     [step, t, it, |R|, r0, |R|/r0, |du|, du0, |du|/du0, converged].
 
+    The residual check, the linear solve and the update are the spans
+    ``residual``, ``linear`` and ``update`` of ``timer``, the driver's
+    ``StepTimer``: no sync of their own, and ranges of the profiler's trace
+    when one records.
+
     Returns (T, p, iters, timing) with timing keys nres/njac/nlin/nupd;
     raises RuntimeError on non-convergence."""
     import time as _time
 
+    spans = timer.spans
     nres = njac = nlin = nupd = 0.0
     r0 = du0 = 1.0
     converged = False
@@ -443,10 +452,11 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
     if stall_dx_rtol is None:
         stall_dx_rtol = 30.0 * float(torch.finfo(T.dtype).eps)
     for it in range(newton_cfg.max_iter):
-        tt = _time.perf_counter()
-        R = residual(T, p)
-        res_norm = float(torch.linalg.vector_norm(R))
-        nres += _time.perf_counter() - tt
+        with timer.span("residual"):
+            R = residual(T, p)
+            host_sync()
+            res_norm = float(torch.linalg.vector_norm(R))
+        nres += spans["residual"]
         if it == 0:
             r0 = max(1.0, res_norm)
         rel_res = res_norm / r0
@@ -459,6 +469,7 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
         noimp = 0 if improved else noimp + 1
         rmax = res_norm if improved else max(rmax, res_norm)
         rbest = min(rbest, res_norm)
+        host_sync()
         xnorm = float(torch.sqrt(torch.sum(T * T) + torch.sum(p * p)))
         flat_ok = flat_enabled and rmax <= stall_flat * rbest_pre
         stalled = noimp >= stall_patience and (
@@ -475,17 +486,19 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
             tt = _time.perf_counter()
             lu = factorize(T, p)
             njac += _time.perf_counter() - tt
-        tt = _time.perf_counter()
-        dx = lu.solve(-R)
-        un = float(torch.linalg.vector_norm(dx))
-        nlin += _time.perf_counter() - tt
-        tt = _time.perf_counter()
-        un_prev = un
-        if it == 0:
-            du0 = max(1.0, un)
-        T, p = enforce_bc(T + dx[:n], p + dx[n:])
-        device_sync(T.device)()
-        nupd += _time.perf_counter() - tt
+        with timer.span("linear"):
+            dx = lu.solve(-R)
+            host_sync()
+            un = float(torch.linalg.vector_norm(dx))
+        nlin += spans["linear"]
+        with timer.span("update"):
+            un_prev = un
+            if it == 0:
+                du0 = max(1.0, un)
+            T, p = enforce_bc(T + dx[:n], p + dx[n:])
+            host_sync()
+            device_sync(T.device)()
+        nupd += spans["update"]
         newton_csv.writerow([step, t, it, res_norm, r0, rel_res,
                              un, du0, un / du0, 0])
         if print_level > 0:

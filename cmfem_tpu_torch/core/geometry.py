@@ -18,6 +18,7 @@ import torch
 from .mesh import Mesh
 from .quadrature import QuadratureRule
 from .reference_elements import get_reference_element
+from ..utils.timing import host_copy
 
 
 @dataclass
@@ -156,8 +157,12 @@ def compute_face_factors(face_coords, Bf, Gf, weights, normal_sign) -> FaceFacto
     All are moved to ``face_coords``'s device and dtype.
     """
     face_coords = torch.as_tensor(face_coords)
-    cv = lambda a: torch.as_tensor(a).to(device=face_coords.device,
-                                         dtype=face_coords.dtype)
+
+    def cv(a):
+        host_copy(a, face_coords.device)
+        return torch.as_tensor(a).to(device=face_coords.device,
+                                     dtype=face_coords.dtype)
+
     Bf, Gf, weights, normal_sign = cv(Bf), cv(Gf), cv(weights), cv(normal_sign)
     T = torch.einsum("end,qnr->eqdr", face_coords, Gf)  # tangent vectors
     dim = face_coords.shape[-1]

@@ -36,6 +36,7 @@ from ..core.geometry import (
 )
 from ..core.quadrature import gauss_rule
 from ..core.reference_elements import get_reference_element
+from ..utils.timing import host_copy
 
 
 def eval_coefficient(coeff, xq, time=None):
@@ -188,6 +189,7 @@ class SpaceOps:
         as it is, graph included; None means the mesh's own)."""
         if vertices is None:
             vertices = self.fes.mesh.vertices
+        host_copy(vertices, self.device)
         if torch.is_tensor(vertices):
             return vertices.to(self.device)
         return torch.as_tensor(np.asarray(vertices), dtype=self.dtype,

@@ -35,6 +35,7 @@ import torch
 from ..ops.assembly import SpaceOps
 from ..ops.faces import BoundaryTrace
 from .tacot import TacotMaterial
+from ..utils.timing import host_sync
 
 MU_FLOOR = 1.0e-12
 
@@ -428,8 +429,13 @@ class AblationSystem:
         """An AblationState from ``advance_state_arrays``' output (the
         diagnostics are copied to the host)."""
         mat = self.mat
-        host = lambda a: a.cpu().numpy() if torch.is_tensor(a) \
-            else np.asarray(a)
+
+        def host(a):
+            if not torch.is_tensor(a):
+                return np.asarray(a)
+            host_sync()
+            return a.cpu().numpy()
+
         tau_e, rho_e = host(tau_e), host(rho_e)
         rho_v = mat.initial_solid_density()
         rho_c = mat.char_solid_density()

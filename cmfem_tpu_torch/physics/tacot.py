@@ -32,6 +32,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils.timing import host_copy, host_sync
+
 
 def natural_spline_y2(x: np.ndarray, y: np.ndarray) -> np.ndarray:
     """Second derivatives of the natural cubic spline through (x, y).
@@ -136,6 +138,7 @@ class _DeviceCache:
     def get(self, name, arr, like):
         key = (name, like.device, like.dtype)
         if key not in self._c:
+            host_sync()
             self._c[key] = torch.as_tensor(np.asarray(arr), dtype=like.dtype,
                                            device=like.device)
         return self._c[key]
@@ -328,6 +331,7 @@ class _ExtentSolve(torch.autograd.Function):
     def forward(T, dt, extent_old, mat):
         rt = _Rates(mat, T)
         x_old = torch.clamp(extent_old, 0.0, 1.0)
+        host_copy(dt, T.device)
         dt = torch.as_tensor(dt, dtype=T.dtype, device=T.device)
         dtb = dt.reshape(dt.shape + (1,) * (x_old.ndim - dt.ndim)) \
             if dt.ndim else dt
@@ -346,6 +350,8 @@ class _ExtentSolve(torch.autograd.Function):
                                               torch.ones_like(x)), x_old)
             delta = torch.max(torch.abs(x_new - x)) if x.numel() else 0.0
             x = x_new
+            if torch.is_tensor(delta):
+                host_sync()
             if not bool(delta > tol):
                 break
         return torch.minimum(torch.maximum(torch.where(active, x, x_old),
@@ -366,6 +372,7 @@ class _ExtentSolve(torch.autograd.Function):
         zeroed where the solution sits on a clamp."""
         T, x, extent_old = ctx.saved_tensors
         rt = _Rates(ctx.mat, T)
+        host_copy(ctx.dt, T.device)
         dt = torch.as_tensor(ctx.dt, dtype=T.dtype, device=T.device)
         dtb = dt.reshape(dt.shape + (1,) * (x.ndim - dt.ndim)) \
             if dt.ndim else dt
@@ -654,6 +661,7 @@ class TacotMaterial:
             dX = torch.clamp(x - xo, min=0.0)
             w = self._dev.get("pi_w", self.rho_eps0[self.phase] * self.F,
                               extent)
+            host_copy(dt, x.device)
             dt_t = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
             pi = torch.where(dt_t > 0,
                              w * dX / torch.clamp(dt_t, min=1e-300), 0.0)

@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timing import host_sync
+
 
 class SolveResult(NamedTuple):
     x: torch.Tensor
@@ -170,6 +172,7 @@ def gmres(apply_A: Callable, b, x0=None, M: Callable | None = None,
 
     bnorm = norm(M(b))
     eps = torch.finfo(dtype).eps
+    host_sync()
     tol = torch.maximum(torch.clamp(rtol * bnorm, min=atol),
                         16.0 * eps * bnorm).cpu()
     m = restart
@@ -186,6 +189,7 @@ def gmres(apply_A: Callable, b, x0=None, M: Callable | None = None,
         # of 0-d tensor ops
         R = np.zeros((m + 1, m), dtype=npdt)
         g = np.zeros(m + 1, dtype=npdt)
+        host_sync()
         g[0] = beta.cpu().numpy()
         cs = np.zeros(m, dtype=npdt)
         sn = np.zeros(m, dtype=npdt)
@@ -201,6 +205,7 @@ def gmres(apply_A: Callable, b, x0=None, M: Callable | None = None,
             h = h + h2
             hj1 = norm(w)
             V[j + 1] = torch.where(hj1 > tiny, w / hj1, torch.zeros_like(w))
+            host_sync(2)
             h = h.cpu().numpy()
             h[j + 1] = hj1.cpu().numpy()
             # apply the previous rotations to the new column
@@ -230,14 +235,17 @@ def gmres(apply_A: Callable, b, x0=None, M: Callable | None = None,
                                         .to(dtype))
         gg = torch.where(usable, g[:m], 0.0)
         y = torch.linalg.solve_triangular(Rsolve, gg[:, None], upper=True)
+        host_sync()   # y, on the host, to the device
         x_new = x + V[:m].T @ y[:, 0].to(dev)
         # explicit (not Givens-estimated) residual; also the next cycle's
         # starting vector
         r_new = M(b - apply_A(x_new))
+        host_sync()
         return x_new, r_new, norm(r_new).cpu(), j
 
     r = M(b - apply_A(x0)).to(dtype)
     x = x0
+    host_sync()
     res = norm(r).cpu()
     prev = torch.tensor(float("inf"), **host)
     k = ki = 0
@@ -248,6 +256,7 @@ def gmres(apply_A: Callable, b, x0=None, M: Callable | None = None,
         k += 1
         ki += k_in
     stagnated = bool(res > tol) and not bool(res < 0.9 * prev)
+    host_sync()
     relres = res / torch.clamp(bnorm.cpu(), min=tiny)
     return SolveResult(x, k, float(res), bool(res <= tol), ki, stagnated,
                        float(relres))
