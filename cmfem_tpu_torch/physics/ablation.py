@@ -35,7 +35,7 @@ import torch
 from ..ops.assembly import SpaceOps
 from ..ops.faces import BoundaryTrace
 from .tacot import TacotMaterial
-from ..utils.timing import host_sync
+from ..utils.timing import host_sync, span_count
 
 MU_FLOOR = 1.0e-12
 
@@ -76,6 +76,59 @@ def _grad(invJ, gref):
     return torch.sum(invJ * gref[..., :, None], dim=-2)
 
 
+class _JacobianGraph:
+    """One key's element Jacobians as a CUDA graph.  The inputs (``T``,
+    ``p``, ``invJ``, ``wdetJ``, ``T_old_q``, ``p_old_q``, ``X_old``, ``wq``,
+    the ``gcl`` pair; ``None`` where not given) are copied into static
+    buffers and ``dt`` into a 0-d device tensor before every replay; no
+    host number reaches the card inside the graph, and the extent sweeps
+    run to their cap there, each frozen where the eager loop would stop
+    (``tacot._extent_sweeps``).  The graph's memory is freed with it."""
+
+    # one capture stream per device: a stream's cuBLAS workspace is kept
+    # for the life of the process
+    _streams = {}
+
+    def __init__(self, fn, args, dt):
+        self.device = args[0].device
+        with torch.cuda.device(self.device):
+            self.inputs = [None if a is None else
+                           tuple(torch.empty_like(b) for b in a)
+                           if isinstance(a, tuple) else torch.empty_like(a)
+                           for a in args]
+            self.dt = torch.empty((), dtype=args[0].dtype,
+                                  device=self.device)
+            self._load(args, dt)
+            stream = self._streams.get(self.device)
+            if stream is None:
+                stream = self._streams[self.device] = torch.cuda.Stream()
+            current = torch.cuda.current_stream()
+            stream.wait_stream(current)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.outputs = fn(*self.inputs, self.dt)
+                finally:
+                    self.graph.capture_end()
+            current.wait_stream(stream)
+
+    def _load(self, args, dt):
+        for buf, a in zip(self.inputs, args):
+            if isinstance(buf, tuple):
+                for b, x in zip(buf, a):
+                    b.copy_(x)
+            elif buf is not None:
+                buf.copy_(a)
+        self.dt.fill_(dt)
+
+    def __call__(self, args, dt):
+        with torch.cuda.device(self.device):
+            self._load(args, dt)
+            self.graph.replay()
+            return tuple(o.clone() for o in self.outputs)
+
+
 class AblationSystem:
     """The coupled residual, AD Jacobian, state advance, and diagnostics."""
 
@@ -90,6 +143,8 @@ class AblationSystem:
         self.trace = BoundaryTrace(ops, attr_marker=[top_attr])
         self._trace_elem = torch.as_tensor(self.trace.elem, device=ops.device)
         self.lat = None
+        # element_jacobians' CUDA graphs by key (None: seen once, eager)
+        self._graphs = {}
 
     def set_dof_lattice(self, lat):
         """Take the window-slicing residual path on a tensor-product strip
@@ -249,24 +304,64 @@ class AblationSystem:
         element axis (``CMFEM_ELEMJAC_CHUNK``) for its TPU memory; here the
         blocks of the largest mesh run (42k order-1 quads) take 21 MB in
         float64 and the transform's working set a few hundred, so there is
-        no chunking."""
-        ops = self.ops
-        gf = gf or ops.gf
+        no chunking.
+
+        The JAX package jits the call; here its ~3,000 small kernels are
+        launched one by one from the host, so on a CUDA device the call is
+        kept as a CUDA graph, one per key (shapes, dtype, device, which of
+        ``wq``/``gcl`` are given, ``ale_toggles``): a key's first call runs
+        eagerly (it warms the transforms, the allocator and the material's
+        device constants), its second captures the graph and replays it,
+        and every later call copies its inputs into the graph's buffers and
+        replays it.  The blocks returned are copies, so a later replay
+        leaves them be.  On the CPU every call is eager.  Each call counts
+        ``jacobian_eager``, ``jacobian_captures`` or ``jacobian_replays`` on
+        the timer whose span is open."""
+        gf = gf or self.ops.gf
+        ale_toggles = tuple(bool(a) for a in ale_toggles)
+        args = (T, p, gf.invJ, gf.wdetJ, T_old_q, p_old_q, X_old, wq,
+                None if gcl is None else tuple(gcl))
+        if T.device.type != "cuda":
+            span_count("jacobian_eager")
+            return self._element_jacobians(*args, dt, ale_toggles)
+        key = (self.ne, self.nq, self.ops.eldofs.shape[1], X_old.shape[-1],
+               T.dtype, T.device, wq is not None, gcl is not None,
+               ale_toggles)
+        graph, kind = self._graphs.get(key), "jacobian_replays"
+        if graph is None and key in self._graphs:
+            graph = self._graphs[key] = self._capture_jacobians(
+                args, dt, ale_toggles)
+            kind = "jacobian_captures"
+        if graph is None:
+            self._graphs[key] = None
+            span_count("jacobian_eager")
+            return self._element_jacobians(*args, dt, ale_toggles)
+        span_count(kind)
+        return graph(args, dt)
+
+    def _element_jacobians(self, T, p, invJ, wdetJ, T_old_q, p_old_q, X_old,
+                           wq, gcl, dt, ale_toggles):
         if wq is None:
-            wq = torch.zeros(gf.wdetJ.shape + (gf.xq.shape[-1],),
-                             dtype=gf.wdetJ.dtype, device=gf.wdetJ.device)
+            wq = torch.zeros(wdetJ.shape + (invJ.shape[-1],),
+                             dtype=wdetJ.dtype, device=wdetJ.device)
         if gcl is None:
-            neg = torch.full_like(gf.wdetJ, -1.0)
+            neg = torch.full_like(wdetJ, -1.0)
             gcl_arrs = (neg, neg)
         else:
             gcl_arrs = gcl
         elem_res = self.elem_residual_fn(dt, gcl_enabled=gcl is not None,
                                          ale_toggles=ale_toggles)
         jac = torch.func.vmap(torch.func.jacfwd(elem_res, argnums=(0, 1)))
-        (JTT, JTp), (JpT, Jpp) = jac(T[ops.eldofs], p[ops.eldofs], gf.invJ,
-                                     gf.wdetJ, T_old_q, p_old_q, X_old, wq,
-                                     *gcl_arrs)
+        eldofs = self.ops.eldofs
+        (JTT, JTp), (JpT, Jpp) = jac(T[eldofs], p[eldofs], invJ, wdetJ,
+                                     T_old_q, p_old_q, X_old, wq, *gcl_arrs)
         return JTT, JTp, JpT, Jpp
+
+    def _capture_jacobians(self, args, dt, ale_toggles):
+        """The CUDA graph of ``_element_jacobians`` at these arguments'
+        key (``_JacobianGraph``)."""
+        return _JacobianGraph(
+            lambda *a: self._element_jacobians(*a, ale_toggles), args, dt)
 
     # -- checks, state advance, diagnostics -------------------------------
 

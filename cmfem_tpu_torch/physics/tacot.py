@@ -321,6 +321,40 @@ def _batch_front(t, bdim, size):
     return t.movedim(bdim, 0)
 
 
+def _extent_sweeps(rt, T, dtb, x_old, arr, tpow, active, iters, frozen):
+    """The extent equation's Newton sweeps from ``x_old``: at most ``iters``,
+    the last the first whose largest change is not above 100 eps of the
+    dtype (a NaN change stops too).  Eager, the host reads each sweep's
+    change and stops there; ``frozen`` runs every sweep with no wait, a
+    device flag set at that sweep holding x from then on, which gives the
+    same x bit for bit (what a CUDA graph capture needs)."""
+    tol = 100.0 * torch.finfo(T.dtype).eps
+    x = x_old
+    done = None
+    if frozen and x.numel():
+        done = torch.zeros((), dtype=torch.bool, device=x.device)
+    for _ in range(iters):
+        _, _, _, xpow, dxpow = rt.pieces(T, x)
+        rate = arr * xpow * tpow
+        f = x - x_old - dtb * rate
+        dfdx = 1.0 + dtb * arr * rt.m_exp * dxpow * tpow
+        dx = f / torch.clamp(dfdx, min=1e-14)
+        x_new = torch.where(active,
+                            torch.minimum(torch.maximum(x - dx, x_old),
+                                          torch.ones_like(x)), x_old)
+        delta = torch.max(torch.abs(x_new - x)) if x.numel() else 0.0
+        if done is not None:
+            x = torch.where(done, x, x_new)
+            done = done | ~(delta > tol)
+            continue
+        x = x_new
+        if torch.is_tensor(delta):
+            host_sync()
+        if not bool(delta > tol):
+            break
+    return x
+
+
 class _ExtentSolve(torch.autograd.Function):
     """x = solve(T, dt, x_old): the backward-Euler extent equation
     x - x_old - dt rate(x, T) = 0 by a convergence-gated Newton (at most
@@ -337,23 +371,10 @@ class _ExtentSolve(torch.autograd.Function):
             if dt.ndim else dt
         Tc, arr, tpow, _, _ = rt.pieces(T, x_old)
         active = rt.active(Tc, arr, dtb)
-        tol = 100.0 * torch.finfo(T.dtype).eps
-        x = x_old
-        for _ in range(mat.newton_iters):
-            _, _, _, xpow, dxpow = rt.pieces(T, x)
-            rate = arr * xpow * tpow
-            f = x - x_old - dtb * rate
-            dfdx = 1.0 + dtb * arr * rt.m_exp * dxpow * tpow
-            dx = f / torch.clamp(dfdx, min=1e-14)
-            x_new = torch.where(active,
-                                torch.minimum(torch.maximum(x - dx, x_old),
-                                              torch.ones_like(x)), x_old)
-            delta = torch.max(torch.abs(x_new - x)) if x.numel() else 0.0
-            x = x_new
-            if torch.is_tensor(delta):
-                host_sync()
-            if not bool(delta > tol):
-                break
+        # a CUDA graph capture may not wait for the device
+        frozen = T.is_cuda and torch.cuda.is_current_stream_capturing()
+        x = _extent_sweeps(rt, T, dtb, x_old, arr, tpow, active,
+                           mat.newton_iters, frozen)
         return torch.minimum(torch.maximum(torch.where(active, x, x_old),
                                            x_old), torch.ones_like(x))
 

@@ -31,11 +31,17 @@ import torch
 _open: list = []
 
 
+def span_count(name: str, k: int = 1):
+    """Add ``k`` to the counter ``name`` of the timer whose span is open;
+    nothing when none is."""
+    if _open:
+        _open[-1].count(name, k)
+
+
 def host_sync(k: int = 1):
     """Count ``k`` host waits for the device (``host_syncs``) on the timer
     whose span is open; nothing when none is.  Call it just before the wait."""
-    if _open:
-        _open[-1].count("host_syncs", k)
+    span_count("host_syncs", k)
 
 
 def host_copy(a, device):

@@ -8,14 +8,17 @@ the AD element Jacobians to 1e-10, the state advance and the top-boundary
 mass flux to 1e-12 (relative to the largest entry); the lattice residual
 equals the generic one to 1e-13; ``jacobian_check`` passes; the case-2.2
 recession velocity and host mass-equation probes match JAX's (the case-2.1
-SEB terms are held in ``test_torch_ablation_seb.py``)."""
+SEB terms are held in ``test_torch_ablation_seb.py``).  On the card the
+element Jacobians' CUDA graph (eager, captured, replayed) is held to the
+eager ``vmap(jacfwd)`` on the 11 x 239 strip, the port alone."""
 
 import numpy as np
 import pytest
 import torch
 
 from torch_ablation_helpers import (  # noqa: F401
-    ablation_pair, rel, one_torch_thread)
+    FIXTURE, TOP, ablation_pair, heating_fields, one_torch_thread, rel,
+    strip_file)
 
 CASES = [(3, 30, 1), (2, 12, 2)]
 
@@ -132,3 +135,84 @@ def test_cuda_residual_and_jacobians_equal_cpu(pair):
     for a, b in zip(cpu.element_jacobians(*pair["pargs"]),
                     gsys.element_jacobians(*args)):
         assert rel(a.numpy(), b) < 1e-10
+
+
+def _strip_system(tmpdir, device, nx=11, ny=239):
+    """The port's AblationSystem alone (no JAX) on the graded strip, a
+    heated (T, p) and the extents after a long step of the cooler field
+    (both reactions under way near the top): the element Jacobians'
+    arguments but ``dt``."""
+    from cmfem_tpu_torch.core import FESpace, load_gmsh
+    from cmfem_tpu_torch.ops import SpaceOps
+    from cmfem_tpu_torch.physics.ablation import (AblationState,
+                                                  AblationSystem)
+    from cmfem_tpu_torch.physics.tacot import TacotMaterial
+
+    fes = FESpace(load_gmsh(strip_file(tmpdir, nx, ny)), 1)
+    sys_ = AblationSystem(SpaceOps(fes, quad_order=4, device=device),
+                          TacotMaterial.load_yaml(FIXTURE),
+                          gravity=(0.0, -9.81), top_attr=TOP)
+    xy = np.asarray(fes.node_positions)
+    t = lambda a: torch.tensor(a, device=device)
+    To, po = map(t, heating_fields(xy, hot=0.7, gas=0.0))
+    T, p = map(t, heating_fields(xy))
+    state = sys_.advance_state(
+        AblationState.initial(sys_.ne, sys_.nq, sys_.mat, device=device),
+        To, po, 1.0)
+    return sys_, (T, p, sys_.ops.values_at_qp(To),
+                  sys_.ops.values_at_qp(po), state.extent)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["case1", "case22"])
+def test_cuda_graph_jacobians_equal_eager(tmp_path, case):
+    """``element_jacobians``' first (eager), second (captured and replayed)
+    and third (replayed at another T and dt) calls on the card, each
+    against the eager ``vmap(jacfwd)`` at its arguments to 1e-12 of the
+    block's largest entry; the second call's blocks are still its own after
+    the third.  "case22" passes case 2.2's arguments, a new geometry each
+    call (``gf``), a mesh velocity ``wq``, a GCL pair and ``ale_toggles``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cmfem_tpu_torch.core import GeometricFactors
+    from cmfem_tpu_torch.utils.timing import StepTimer
+
+    dev = torch.device("cuda")
+    sys_, args = _strip_system(tmp_path, dev)
+    assert 0.05 < float(args[4].max()) < 1.0
+    gen = torch.Generator().manual_seed(7)
+    noise = lambda a: (1e-3 * torch.randn(a.shape, generator=gen,
+                                          dtype=a.dtype)).to(dev)
+
+    def case_kw(call):
+        if case == "case1":
+            return {}
+        gf, s = sys_.ops.gf, 1.0 + 1e-3 * (call + 1)
+        return {"gf": GeometricFactors(gf.detJ * s, gf.invJ / s,
+                                       gf.wdetJ * s, gf.xq),
+                "wq": noise(gf.xq), "gcl": (gf.detJ * (1.0 + noise(gf.detJ)),
+                                            gf.detJ * s),
+                "ale_toggles": (True, False, True)}
+
+    timer = StepTimer()
+    seen, outs, refs = [], [], []
+    for call, (dT, dt) in enumerate([(0.0, 0.1), (0.0, 0.1), (7.5, 0.0731)]):
+        kw = case_kw(call)
+        T = args[0] + dT
+        with timer.span("call"):
+            outs.append(sys_.element_jacobians(T, *args[1:], dt, **kw))
+        seen.append({k: v for k, v in timer.step_reset().items()
+                     if k.startswith("jacobian_")})
+        gf = kw.get("gf", sys_.ops.gf)
+        refs.append(sys_._element_jacobians(
+            T, args[1], gf.invJ, gf.wdetJ, *args[2:], kw.get("wq"),
+            kw.get("gcl"), dt, kw.get("ale_toggles", (True, True, True))))
+    assert seen == [{"jacobian_eager": 1}, {"jacobian_captures": 1},
+                    {"jacobian_replays": 1}]
+    for out, ref in zip(outs, refs):
+        for a, b in zip(ref, out):
+            scale = float(a.abs().max())
+            assert scale > 0.0 and float((a - b).abs().max()) <= 1e-12 * scale
+    # the third call's inputs reached the graph: its blocks moved
+    assert max(float((a - b).abs().max() / a.abs().max())
+               for a, b in zip(refs[1], refs[2])) > 1e-3

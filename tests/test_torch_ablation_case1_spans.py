@@ -6,7 +6,8 @@ last (``run_finish``); every row's ``step_wall`` holds its phases
 under ``torch.profiler`` the chrome trace holds the ``cmfem.*`` ranges
 around the operations of their phases; and on the card every wait of a
 step (a sync-debug warning, or an explicit ``torch.cuda.synchronize``)
-falls at a counted site."""
+falls at a counted site.  On the card, a run whose element Jacobians are
+replayed from CUDA graphs equals the same run all eager."""
 
 import json
 import os
@@ -27,7 +28,13 @@ MODES = {"lu": {}, "scan": {"scan_stepping": True}}
 # wall temperature, the deck's constants at first use), the state's
 # diagnostics and the outputs (the scan path's frame at the run's last step)
 SYNCS = {"lu": [217, 144], "scan": [245, 179]}
-ONE_STEP = {"lu": 217, "scan": 259}
+# a 1-step run's step on the card: the CPU's 217 (lu) and 259 (scan) less
+# the waits of the three element-Jacobian calls after the first, which
+# capture and replay a CUDA graph and wait for nothing (42: their extent
+# sweeps' convergence tests and their copies of dt)
+ONE_STEP = {"lu": 175, "scan": 217}
+# the element-Jacobian calls of those steps (one a Newton iteration)
+JACOBIANS = {"lu": [4, 3], "scan": [4, 3]}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -82,6 +89,10 @@ def test_rows_carry_the_run_spans_and_the_host_syncs(strip, tmp_path,
     assert rows[-1]["run_finish"] > 0 and "run_finish" not in rows[0]
     assert all(r["step_wall"] >= r["total"] > 0 for r in rows)
     assert [r["host_syncs"] for r in rows] == SYNCS[mode]
+    # on the CPU every element-Jacobian call is eager, and counted
+    assert [r.get("jacobian_eager", 0) for r in rows] == JACOBIANS[mode]
+    assert not any(k in r for r in rows
+                   for k in ("jacobian_captures", "jacobian_replays"))
     # the per-step CSV keeps its columns
     with open(os.path.join(str(tmp_path), "driver_timing_per_step.csv")) as f:
         assert f.readline().strip() == (
@@ -194,3 +205,40 @@ def test_every_wait_of_a_step_is_counted(strip, tmp_path, monkeypatch, mode):
             torch.cuda.set_sync_debug_mode(0)
     assert state["uncounted"] == [], "\n".join(state["uncounted"][:5])
     assert rows[0]["host_syncs"] == ONE_STEP[mode]
+
+
+@pytest.mark.gpu
+def test_graph_run_equals_eager_run(strip, tmp_path, monkeypatch):
+    """A 3-step run on the card, its element Jacobians replayed from CUDA
+    graphs after each key's eager call and capture, against the same run
+    with the capture patched out (every call eager): the same Newton
+    counts, T and p within 1e-10 of their largest values; the rows count
+    the calls by kind, and ``bench_port``'s reader of
+    ``jacobian_graph_replay_pct`` reads their share of replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from bench_port import harness
+    from cmfem_tpu_torch.apps import ablation_case1 as P
+    from cmfem_tpu_torch.physics.ablation import AblationSystem
+
+    graph = P.run(_cfg(strip, str(tmp_path / "graph"), 3), device="cuda")
+    monkeypatch.setattr(AblationSystem, "_capture_jacobians",
+                        lambda self, *args: None)
+    eager = P.run(_cfg(strip, str(tmp_path / "eager"), 3), device="cuda")
+    assert graph["newton_iters"] == eager["newton_iters"]
+    for k in ("T", "p"):
+        assert np.abs(graph[k] - eager[k]).max() <= \
+            1e-10 * np.abs(eager[k]).max()
+    calls = lambda out, k: sum(r.get(k, 0) for r in out["timing"])
+    assert calls(graph, "jacobian_eager") == 1
+    assert calls(graph, "jacobian_captures") == 1
+    replays = calls(graph, "jacobian_replays")
+    assert replays >= 1
+    assert calls(eager, "jacobian_captures") == 0 == \
+        calls(eager, "jacobian_replays")
+    read = harness.load_module("metrics", "jacobian_graph_replay_pct").read
+    assert read({"timing_rows": graph["timing"]}) == \
+        pytest.approx(100.0 * replays / (replays + 2))
+    assert read({"timing_rows": eager["timing"]}) == 0.0

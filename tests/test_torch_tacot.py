@@ -4,9 +4,11 @@ seeded inputs through both packages in float64 on the CPU.  Splines and the
 exact interior pressure level, to 1e-13 (uniform, ragged and one-level
 tables); the reaction extents and their IFT tangent against ``jax.jvp`` to
 1e-12 (interior, clamped at x = 1 and inactive points); the port's
-``vmap(jacfwd)`` through the extent ``Function`` against JAX's; the solid
-and gas properties to 1e-13; ``load_yaml`` of the JSON fixture against
-``from_mapping`` and against the JAX package's loader of the same file."""
+``vmap(jacfwd)`` through the extent ``Function`` against JAX's; the
+extent sweeps' host early exit against their frozen device form, bit for
+bit; the solid and gas properties to 1e-13; ``load_yaml`` of the JSON
+fixture against ``from_mapping`` and against the JAX package's loader of
+the same file."""
 
 import json
 import os
@@ -160,6 +162,54 @@ def test_extent_solve_and_tangent_match_jax(mats, mats_m0, deck):
         (torch.tensor(tT), torch.tensor(tdt, dtype=torch.float64),
          torch.tensor(tX)))
     assert _rel(jt, pt) < 1e-12
+
+
+def _sweep_batch(kind):
+    """Extent-solve inputs (T, X0, dt) that stop the sweeps three ways:
+    converged ("converging"), at the 30-sweep cap ("cap": so long a step
+    that 1 - x shrinks by about a third a sweep, 50-odd sweeps from x = 0),
+    and on a NaN change ("nan": a NaN temperature, and a NaN old extent at
+    an active point)."""
+    T, X0 = _extent_inputs()
+    dt = DT
+    if kind == "cap":
+        T[:], X0[:], dt = 3000.0, 0.0, 1e25
+    elif kind == "nan":
+        T[2, 0] = np.nan
+        T[2, 1], X0[2, 1, 1] = 1200.0, np.nan
+    return T, X0, dt
+
+
+@pytest.mark.parametrize("batch", ["converging", "cap", "nan"])
+def test_extent_sweeps_frozen_equal_early_exit(mats, batch):
+    """The extent sweeps with the host's early exit and with the device
+    flag that freezes x (what a CUDA graph capture runs) give the same x
+    bit for bit; the eager loop's waits, one a sweep, show where it
+    stopped."""
+    from cmfem_tpu_torch.utils.timing import StepTimer
+
+    _, mp = mats
+    T, X0, dt = _sweep_batch(batch)
+    T = torch.tensor(T)
+    x_old = torch.clamp(torch.tensor(X0), 0.0, 1.0)
+    dtb = torch.tensor(dt, dtype=torch.float64)
+    rt = P._Rates(mp, T)
+    Tc, arr, tpow, _, _ = rt.pieces(T, x_old)
+    active = rt.active(Tc, arr, dtb)
+    timer = StepTimer()
+    out = {}
+    for frozen in (False, True):
+        with timer.span("sweeps"):
+            out[frozen] = P._extent_sweeps(rt, T, dtb, x_old, arr, tpow,
+                                           active, mp.newton_iters, frozen)
+        out["waits", frozen] = timer.step_reset().get("host_syncs", 0)
+    assert torch.equal(out[False].view(torch.int64),
+                       out[True].view(torch.int64))
+    assert out["waits", True] == 0
+    sweeps = {"converging": range(2, mp.newton_iters), "cap":
+              [mp.newton_iters], "nan": [1]}[batch]
+    assert out["waits", False] in sweeps and mp.newton_iters == 30
+    assert torch.isnan(out[True]).any() == (batch == "nan")
 
 
 def _composite(mat):

@@ -1,9 +1,10 @@
 """Shared set-up of the ablation parity tests: one strip mesh, the synthetic
-TACOT deck and a mid-heating (T, p, extent) state in both packages."""
+TACOT deck and a mid-heating (T, p, extent) state in both packages.  JAX is
+imported by the functions that use it, so that a module of torch-only tests
+(the card's) imports this one on a machine without JAX."""
 
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -51,6 +52,8 @@ def ablation_pair(tmpdir, nx, ny, order, geom="quad"):
     with ``ablation_state_from_numpy``, the step's inputs (the new (T, p),
     the old QP values and dt) and the JAX geometric factors as a port
     ``GeometricFactors`` (``gf``)."""
+    import jax.numpy as jnp
+
     from cmfem_tpu.core import FESpace as JFESpace, load_gmsh as jload
     from cmfem_tpu.ops import SpaceOps as JSpaceOps
     from cmfem_tpu.physics.ablation import AblationState as JState
@@ -201,6 +204,8 @@ def newton_inputs(tmpdir, nx=3, ny=20, rtol=1e-10):
     - "receded": case 2.2's flux model on the top receded by up to 2%,
       with a seeded downward mesh velocity at the QPs and a GCL pair
       (J_old seeded around the receded J_new)."""
+    import jax.numpy as jnp
+
     from cmfem_tpu.physics import seb as JS
     from cmfem_tpu.physics.surface_bc import BoundaryState
 
@@ -249,6 +254,8 @@ def jax_newton(kind, pair, inp, ndev):
     "sharded" or "dofpart") on ``ndev`` virtual CPU devices: the global
     residual, prepare's factors in the class's global layout, the Newton
     direction and the GMRES counts."""
+    import jax.numpy as jnp
+
     from cmfem_tpu.parallel import (DofPartitionedAblationNewton,
                                     ShardedAblationNewton, make_device_mesh)
     from cmfem_tpu.physics.bprime import BPrimeTable
