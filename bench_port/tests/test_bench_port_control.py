@@ -19,23 +19,20 @@ sys.path.insert(0, str(ROOT))
 from bench_port import harness  # noqa: E402
 
 CPU = torch.device("cpu")
-SMALL = {"cdr3d-p2.n48-steps": {"n": 4},
-         "cdr3d-p2.n48-applies": {"n": 4},
-         "ablation-tc1.r0-lu": {"strip": [3, 20], "steps": 2},
-         "ablation-tc1.r2-scan": {"strip": [2, 8], "refine": 1, "steps": 2}}
 
 
 def make(cell_name, seed=2**31 + 5):
-    """The cell built on the CPU at its small size; a workload kept for a
-    later cell (not in BENCHMARK.json) takes the configuration its name
-    starts with."""
+    """The cell built on the CPU at its small size (``small/<cell>.json``,
+    the size every CPU test runs it at); a workload kept for a later cell
+    (not in BENCHMARK.json) takes the configuration its name starts
+    with."""
     bench = harness.load_benchmark(ROOT)
     config_name = cell_name.split(".")[0]
     cfg = harness.find(bench, "configs", config_name)
     with open(ROOT / cfg["file"]) as f:
         config = json.load(f)
     workload = {**harness.load_json("workloads", cell_name),
-                **SMALL[cell_name]}
+                **harness.load_json("small", cell_name)}
     cell = harness.load_module("kinds", workload["kind"]).Cell(
         config, workload, seed, CPU)
     cell.warm()

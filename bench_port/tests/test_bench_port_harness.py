@@ -26,15 +26,27 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 RESULT_KEYS = {"correct", "attempted", "failed", "metrics", "device",
                "checks"}
 
-# small sizes of each cell for the CPU
-SMALL = {"cdr3d-p2.n48-applies": {"n": 4, "span_applies": 5,
-                                  "gap_span_applies": 3},
-         "ablation-tc1.r0-lu": {"strip": [3, 20], "steps": 2,
-                                "span_steps": 1}}
+
+def smaller(small, full):
+    if isinstance(full, list):
+        return (isinstance(small, list) and len(small) == len(full)
+                and all(map(smaller, small, full)))
+    return small <= full
 
 
-def test_every_cell_has_small_sizes():
-    assert set(SMALL) == {w["name"] for w in BENCH["workloads"]}
+@pytest.mark.parametrize("wl", BENCH["workloads"], ids=lambda w: w["name"])
+def test_cell_has_small_sizes(wl):
+    """The cell's sizes for the CPU (``small/<cell>.json``, merged over its
+    workload by every CPU test that runs it): each key is a key of its
+    workload or of its configuration, and no size is larger than the
+    cell's."""
+    small = harness.load_json("small", wl["name"])
+    cfg = harness.find(BENCH, "configs", wl["config"])
+    with open(ROOT / cfg["file"]) as f:
+        full = {**json.load(f), **harness.load_json("workloads", wl["name"])}
+    assert small and set(small) <= set(full)
+    for key, value in small.items():
+        assert smaller(value, full[key]), (key, value, full[key])
 
 
 @pytest.mark.parametrize("cfg", BENCH["configs"], ids=lambda c: c["name"])
@@ -137,6 +149,37 @@ def test_trace_reduction():
     assert tracing.reduce_events([], 1.0).busy_s == 0.0
 
 
+def test_gap_named_by_innermost_open_operation():
+    """A gap is named by the latest-starting host operation still open at
+    the launch of the work ending it: past inner operations that ended
+    before it, none where no operation is open, none where no launch is
+    recorded."""
+    def op(name, ts, dur):
+        return {"ph": "X", "cat": "cpu_op", "name": name, "ts": ts,
+                "dur": dur}
+
+    def launch(ts, c):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": ts, "dur": 1, "args": {"correlation": c}}
+
+    def kernel(ts, c):
+        return {"ph": "X", "cat": "kernel", "name": f"k{c}", "ts": ts,
+                "dur": 5, "args": {"correlation": c}}
+
+    ev = [op("outer", 0, 60), op("inner", 10, 20), op("leaf", 12, 3),
+          op("late", 70, 5), kernel(1, 0),
+          launch(13, 1), kernel(20, 1),   # in leaf
+          launch(20, 2), kernel(40, 2),   # in inner, leaf ended
+          launch(40, 3), kernel(60, 3),   # in outer, inner ended
+          launch(65, 4), kernel(80, 4),   # no operation open
+          kernel(100, 5)]                 # no launch recorded
+    tr = tracing.reduce_events(ev, 110e-6)
+    assert tr.gaps == pytest.approx({
+        "leaf": 14e-6, "inner": 15e-6, "outer": 15e-6,
+        "(host, no operation)": 15e-6, "(unlaunched)": 15e-6,
+        "(span start)": 1e-6, "(span end)": 5e-6})
+
+
 REHEARSE = """
 import json, sys, time
 t0 = time.perf_counter()
@@ -150,10 +193,10 @@ print(json.dumps({{"out": out, "loaded": harness.forbidden_modules()}}))
 
 
 @pytest.mark.parametrize("traced", [0, 1])
-@pytest.mark.parametrize("cell", sorted(SMALL))
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_cell_rehearsal(cell, traced, tmp_path):
     code = REHEARSE.format(root=str(ROOT), cell=cell, traced=bool(traced),
-                           sizes=SMALL[cell])
+                           sizes=harness.load_json("small", cell))
     env = {**os.environ, "TMPDIR": str(tmp_path), "OMP_NUM_THREADS": "2"}
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600, cwd=tmp_path, env=env)

@@ -1,8 +1,9 @@
 """The readers of the drivers' spans and host-sync counter
 (``run_setup_ms_per_step``, ``step_rest_ms_per_step``,
 ``host_syncs_per_step``) on synthetic records, rows without the new keys
-(a program that has no such span or counter) reading None, and the traced
-r0-lu cell rehearsed on the CPU at a small size reporting all three.
+(a program that has no such span or counter) reading None, and each traced
+cell that the three list rehearsed on the CPU at its small size reporting
+all three.
 
 Run: ``python -m pytest bench_port/tests -q``."""
 
@@ -18,6 +19,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from bench_port import harness  # noqa: E402
+
+BENCH = harness.load_benchmark(ROOT)
 
 NEW = ("run_setup_ms_per_step", "step_rest_ms_per_step",
        "host_syncs_per_step")
@@ -57,9 +60,13 @@ def test_reader_reads_none_without_the_keys(name):
 
 @pytest.mark.parametrize("name", NEW)
 def test_entry_lists_the_cells_whose_rows_it_reads(name):
-    m = harness.find(harness.load_benchmark(ROOT), "per_layer", name)
+    """The metric lists cells, each a run of a driver (whose timing rows
+    carry the spans and the count), and moves their step time."""
+    m = harness.find(BENCH, "per_layer", name)
     assert m["moves"] == "step_ms"
-    assert m["workloads"] == ["ablation-tc1.r0-lu"]
+    assert m["workloads"]
+    for cell in m["workloads"]:
+        assert harness.load_json("workloads", cell)["kind"] == "driver_runs"
 
 
 REHEARSE = """
@@ -68,17 +75,20 @@ t0 = time.perf_counter()
 sys.path.insert(0, {root!r})
 import torch
 from bench_port import harness
-out = harness.run_cell(harness.load_benchmark(), "ablation-tc1.r0-lu",
-                       2**31 + 4099, 0.5, True, torch.device("cpu"), t0,
-                       {{"strip": [3, 20], "steps": 2, "span_steps": 1}})
+out = harness.run_cell(harness.load_benchmark(), {cell!r}, 2**31 + 4099,
+                       0.5, True, torch.device("cpu"), t0, {sizes!r})
 print(json.dumps(out))
 """
 
 
-def test_traced_r0_lu_reports_the_new_metrics(tmp_path):
+@pytest.mark.parametrize("cell", sorted(
+    {c for name in NEW
+     for c in harness.find(BENCH, "per_layer", name)["workloads"]}))
+def test_traced_rehearsal_reports_the_new_metrics(cell, tmp_path):
     env = {**os.environ, "TMPDIR": str(tmp_path), "OMP_NUM_THREADS": "2"}
-    p = subprocess.run([sys.executable, "-c",
-                        REHEARSE.format(root=str(ROOT))],
+    code = REHEARSE.format(root=str(ROOT), cell=cell,
+                           sizes=harness.load_json("small", cell))
+    p = subprocess.run([sys.executable, "-c", code],
                        capture_output=True, text=True, timeout=600,
                        cwd=tmp_path, env=env)
     assert p.returncode == 0, p.stderr[-3000:]

@@ -22,7 +22,6 @@ that need the device find nothing.
 
 from __future__ import annotations
 
-import bisect
 import json
 import os
 import tempfile
@@ -125,12 +124,16 @@ def reduce_events(events, window_s) -> Trace:
         return tr
     dev.sort(key=lambda e: e["ts"])
     by_name = defaultdict(float)
+    short = {}
     busy, kernel = 0.0, 0.0
     cur_s, cur_e = dev[0]["ts"], dev[0]["ts"]
     for e in dev:
         d = float(e.get("dur", 0.0))
         kernel += d
-        by_name[short_name(e.get("name", "?"))] += d * 1e-6
+        name = e.get("name", "?")
+        if name not in short:
+            short[name] = short_name(name)
+        by_name[short[name]] += d * 1e-6
         s, t = e["ts"], e["ts"] + d
         if s > cur_e:
             busy += cur_e - cur_s
@@ -155,33 +158,44 @@ def _gaps(events, dev, window_s):
                 launch_ts[c] = e["ts"]
     ops = sorted((e for e in events if e.get("ph") == "X"
                   and e.get("cat") == "cpu_op"), key=lambda e: e["ts"])
-    starts = [e["ts"] for e in ops]
     host = [e["ts"] for e in events if e.get("ph") == "X"
             and e.get("cat") in ("cpu_op", "user_annotation")]
 
-    def host_op(ts):
-        # the innermost (latest-starting) cpu_op that encloses ts
-        i = bisect.bisect_right(starts, ts) - 1
-        while i >= 0:
-            e = ops[i]
-            if e["ts"] + e.get("dur", 0.0) >= ts:
-                return e.get("name", "?")
-            i -= 1
-        return "(host, no operation)"
+    # each gap with the launch time of the work that ends it
+    ending = []
+    end = dev[0]["ts"] + dev[0].get("dur", 0.0)
+    for e in dev[1:]:
+        if e["ts"] > end:
+            c = (e.get("args") or {}).get("correlation")
+            ending.append((launch_ts.get(c), (e["ts"] - end) * 1e-6))
+        end = max(end, e["ts"] + e.get("dur", 0.0))
+    host_op = _enclosing(ops, sorted({ts for ts, _ in ending
+                                      if ts is not None}))
 
     gaps = defaultdict(float)
     t0 = min(host) if host else dev[0]["ts"]
     if dev[0]["ts"] > t0:
         gaps["(span start)"] += (dev[0]["ts"] - t0) * 1e-6
-    end = dev[0]["ts"] + dev[0].get("dur", 0.0)
-    for e in dev[1:]:
-        if e["ts"] > end:
-            c = (e.get("args") or {}).get("correlation")
-            ts = launch_ts.get(c)
-            name = host_op(ts) if ts is not None else "(unlaunched)"
-            gaps[name] += (e["ts"] - end) * 1e-6
-        end = max(end, e["ts"] + e.get("dur", 0.0))
+    for ts, s in ending:
+        gaps[host_op[ts] if ts is not None else "(unlaunched)"] += s
     tail = t0 * 1e-6 + window_s - end * 1e-6
     if tail > 0:
         gaps["(span end)"] += tail
     return dict(gaps)
+
+
+def _enclosing(ops, times):
+    """For each of ``times`` (ascending), the name of the innermost
+    (latest-starting) of ``ops`` (sorted by start) that encloses it, in one
+    sweep: a stack of the ops started so far, those that ended before a
+    time popped from its top."""
+    names, stack, i = {}, [], 0
+    for ts in times:
+        while i < len(ops) and ops[i]["ts"] <= ts:
+            stack.append(ops[i])
+            i += 1
+        while stack and stack[-1]["ts"] + stack[-1].get("dur", 0.0) < ts:
+            stack.pop()
+        names[ts] = (stack[-1].get("name", "?") if stack
+                     else "(host, no operation)")
+    return names
