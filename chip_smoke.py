@@ -164,16 +164,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      surface recedes from step 1, every step moves or stands still as the
      schedule says, the rows at t = 0.4 and 0.6 (probes, m_dot_g, m_dot_c,
      B'g, B'c, q_conv, q_surf, fronts, recession, top height) equal the JAX
-     driver's to 1e-7 relative with equal Newton counts; (b)
-     ``scan_stepping`` (the warm-started smoothing, ``TriStripRemap`` and
-     ``TrackedSampler`` on the card, ``BlockTridiagDirect``): the same rows
-     equal the JAX scan path's to 1e-7 with equal Newton counts; against
-     (a) the same moves and Newton counts, T and p within 1e-5 of their
-     largest values, the recession within 1e-5 relative and the vertices
-     within the recession (at this size the smoothing CG stops on its
-     flat-window exit in both packages, each path at its own iterate, and
-     the scan path samples the fronts on the initial line: ROADMAP, known
-     problem 9); the pieces of a receding step timed alone; (c) an eager run
+     driver's within the deviation of ROADMAP known problem 9 (the port's
+     smoothing CG runs to its tolerance, the JAX package's stops on its
+     flat-window exit at this size): 2e-4 relative, the fronts 5e-8 m,
+     with equal Newton counts; (b) ``scan_stepping`` (the warm-started
+     smoothing, ``TriStripRemap`` and ``TrackedSampler`` on the card,
+     ``BlockTridiagDirect``): the same rows equal the JAX scan path's
+     within the same, with equal Newton counts; against (a) the same moves
+     and Newton counts, T and p within 1e-8 of their largest values, the
+     recession within 1e-8 relative and the vertices within 1e-12 of their
+     largest value (both paths at the converged mesh velocity; the scan
+     path samples the fronts on the initial line, so its CSVs differ
+     there); the pieces of a receding step timed alone; (c) an eager run
      resumed from (a)'s t = 0.3 ALE checkpoint ends at (a)'s T, p and
      vertices; (d) the study variant (GCL storage, the Amaryllis metrics
      against ``tests/fixtures/amaryllis_mass_synthetic.dat``), 1 step;
@@ -1358,9 +1360,9 @@ JAX_13A_NEWTON = [3, 3, 3, 3, 3, 3]
 # TriStripRemap, TrackedSampler), from case22.yaml's keys with
 # scan_stepping: true, output_every: 3 and output_path: out_c22_scan
 # (about 4 minutes); 3 linear solves in every step.  They differ from
-# JAX_13A: at this size the smoothing CG of both paths stops on its
-# flat-window exit, each at its own iterate, and the scan path samples the
-# fronts on the initial line (ROADMAP, known problem 9).
+# JAX_13A: at this size the JAX package's smoothing CG stops on its
+# flat-window exit on both paths, each at its own iterate, and the scan
+# path samples the fronts on the initial line (ROADMAP, known problem 9).
 JAX_13B = {
     0.4: {"probes": [797.6714142242758, 439.625282071731, 327.6876861958291,
                      300.6223488964589, 299.9994294238952, 299.9997098002101,
@@ -1387,6 +1389,17 @@ C22_ROW_KEYS = ("probes", "m_dot_g_surf", "m_dot_c", "BprimeG_surf",
                 "recession", "y_top")
 AMARYLLIS = os.path.join(ROOT, "tests", "fixtures",
                          "amaryllis_mass_synthetic.dat")
+
+
+def c22_vs_jax(rows, ref):
+    """(the largest relative difference of every row but the fronts, the
+    largest absolute difference of the fronts in m) of two
+    ``case22_rows``."""
+    keys = tuple(k for k in C22_ROW_KEYS if k != "fronts")
+    d_fronts = max(float(np.max(np.abs(np.subtract(rows[t]["fronts"],
+                                                   r["fronts"]))))
+                   for t, r in ref.items())
+    return rows_rel_diff(rows, ref, keys=keys), d_fronts
 
 
 def case22_rows(out_dir):
@@ -1473,11 +1486,15 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
     log(f"phase 13a: rows {json.dumps(rows)}")
     d_jax = None
     if refs:
-        d_jax = rows_rel_diff(rows, JAX_13A, keys=C22_ROW_KEYS)
+        # the JAX figures carry its smoothing CG's flat-window exit, the
+        # port's CG runs to its tolerance (ROADMAP, known problem 9)
+        d_jax = c22_vs_jax(rows, JAX_13A)
         log(f"phase 13a: vs the JAX driver's figures: max relative "
-            f"difference {d_jax:.3e} (tol 1e-7); linear solves per step "
-            f"{ra['newton_iters']} vs {JAX_13A_NEWTON}")
-        assert d_jax <= 1e-7 and ra["newton_iters"] == JAX_13A_NEWTON, d_jax
+            f"difference {d_jax[0]:.3e} (tol 2e-4), fronts {d_jax[1]:.3e} m "
+            f"(tol 5e-8); linear solves per step {ra['newton_iters']} vs "
+            f"{JAX_13A_NEWTON}")
+        assert d_jax[0] <= 2e-4 and d_jax[1] <= 5e-8, d_jax
+        assert ra["newton_iters"] == JAX_13A_NEWTON
 
     # -- 13b. scan_stepping: the state, the vertices and the warm-started
     # smoothing velocity on the card, TriStripRemap, TrackedSampler
@@ -1488,15 +1505,17 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
     log(f"phase 13b: rows {json.dumps(rows_b)}")
     d_jax_b = None
     if refs:
-        d_jax_b = rows_rel_diff(rows_b, JAX_13B, keys=C22_ROW_KEYS)
+        d_jax_b = c22_vs_jax(rows_b, JAX_13B)
         log(f"phase 13b: vs the JAX scan path's figures: max relative "
-            f"difference {d_jax_b:.3e} (tol 1e-7)")
-        assert d_jax_b <= 1e-7 and rb["newton_iters"] == JAX_13A_NEWTON, \
-            d_jax_b
-    # against 13a: the same moves and Newton counts; the two paths keep
-    # different smoothing-CG iterates where the CG stops on its
-    # flat-window exit, so the vertices agree within the recession and the
-    # fields to what that moves
+            f"difference {d_jax_b[0]:.3e} (tol 2e-4), fronts "
+            f"{d_jax_b[1]:.3e} m (tol 5e-8)")
+        assert d_jax_b[0] <= 2e-4 and d_jax_b[1] <= 5e-8, d_jax_b
+        assert rb["newton_iters"] == JAX_13A_NEWTON
+    # against 13a: the same moves and Newton counts; both paths' smoothing
+    # CGs run to their tolerance, from a cold and a warm start, so the
+    # vertices and the fields agree to the CG's and Newton's roundoff; the
+    # CSVs differ in the fronts, which the scan path samples on the
+    # initial line
     d_csv = max(csv_agree(os.path.join(out("c22_scan"), name),
                           os.path.join(out("c22_lu"), name), 1e-8)
                 for name in ("temperature_probes.csv", "mass_metrics.csv",
@@ -1516,9 +1535,8 @@ def run_ablation_case22(device, tmp, nx=11, ny=239, steps=6, refs=True):
         f"{d_T:.3e}, p {d_p:.3e} of max; moved {rb['moved']}")
     assert rb["newton_iters"] == ra["newton_iters"]
     assert rb["moved"] == ra["moved"]
-    assert d_verts <= ra["recession_total"] and d_rec <= 1e-5, \
-        (d_verts, d_rec)
-    assert d_T <= 1e-5 and d_p <= 1e-5, (d_T, d_p)
+    assert d_verts <= 1e-12 * vmax and d_rec <= 1e-8, (d_verts, d_rec)
+    assert d_T <= 1e-8 and d_p <= 1e-8, (d_T, d_p)
 
     # the front line's first crossing on the card: torch.argmax of the
     # crossing mask (an integer cast) must return the FIRST True, as the

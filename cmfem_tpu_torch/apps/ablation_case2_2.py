@@ -44,8 +44,14 @@ scan path refuses ``sharding_devices`` only and runs a ``dof_partition`` run
 on one device). ``run`` returns the JAX driver's keys plus ``step``,
 ``converged``, ``timing`` (per step: recession, which the CSV's bc_sec
 includes, then residual, jacobian, factorization, linear, update, state,
-output, total seconds), ``newton_iters``, ``moved`` (per step: whether the
-mesh moved) and, with ``jacobian_check``, its results.
+output, total seconds; on the eager path also the recession's phases
+``recession_velocity``, ``mesh_velocity``, ``remap`` and ``mesh_move``,
+which sum to it, ``face_jacobian``, the SEB face blocks inside
+``jacobian``, ``step_wall``, the step's whole wall time, ``host_syncs``,
+``mesh_cg_iters``, the smoother's CG iterations, and, as case 1's, the
+first row's ``run_setup`` and the last row's ``run_finish``),
+``newton_iters``, ``moved`` (per step: whether the mesh moved) and, with
+``jacobian_check``, its results.
 """
 
 from __future__ import annotations
@@ -54,12 +60,13 @@ import dataclasses
 import os
 import sys
 import time as _time
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .ablation_case1 import TIMING_KEYS
+from .ablation_case1 import TIMING_KEYS, _run_spans
 from .ablation_case2_1 import (
     RESTART_MAGIC, RESTART_TIME_TOL, Case21,
     load_bprime_table,
@@ -78,7 +85,7 @@ from ..io import CsvWriter, writes_files
 from ..motion.recession import (LaplacianSmoother, MeshRecessionHandler,
                                 min_quality, quality_tables)
 from ..motion.remap import make_scan_remap, remap_extents_ale
-from ..utils.timing import StepTimer
+from ..utils.timing import StepTimer, host_copy, host_sync
 from ..utils.yamlcfg import load_yaml, resolve_path
 
 # ALE checkpoints carry the receded mesh (the reference's restart format
@@ -89,6 +96,10 @@ RESTART_VERSION_ALE = 2
 
 _MEQ_FIELDS = ("pi_total", "tau", "epsrho", "gradp_y", "rho_g",
                "mu_g", "K", "mobility", "mflux_y")
+# the phases of the moving mesh before the solve; their sum is a row's
+# ``recession``, which the CSV's bc_sec includes
+RECESSION_PHASES = ("recession_velocity", "mesh_velocity", "remap",
+                    "mesh_move")
 _BOUNDARY_KEYS = (
     "m_dot_g_surf", "m_dot_c_surf", "rho_s_surf", "BprimeG_surf",
     "BprimeC_surf", "h_w_surf", "emissivity_surf", "absorptivity_surf",
@@ -366,14 +377,17 @@ class Case22(Case21):
                                              vertices=g.verts)
         return torch.where(self.mask2_t, 0.0, torch.cat([RT, Rp]))
 
-    def jacobians(self, T, p, T_old_q, p_old_q, X_old, dt, bc, branch, g):
-        """The element blocks and the SEB face blocks."""
+    def jacobians(self, T, p, T_old_q, p_old_q, X_old, dt, bc, branch, g,
+                  phase=None):
+        """The element blocks and the SEB face blocks; ``phase`` (a
+        ``StepTimer.phase``) times the face blocks as ``face_jacobian``."""
         blocks = self.sys.element_jacobians(T, p, T_old_q, p_old_q, X_old,
                                             dt, gf=g.gf, wq=g.wq, gcl=g.gcl,
                                             ale_toggles=self.ale_toggles)
-        face = self.sys.seb_face_jacobians(T, p, X_old, bc,
-                                           *self.seb(branch),
-                                           vertices=g.verts)
+        with phase("face_jacobian") if phase else nullcontext():
+            face = self.sys.seb_face_jacobians(T, p, X_old, bc,
+                                               *self.seb(branch),
+                                               vertices=g.verts)
         return blocks, face
 
     # -- outputs ---------------------------------------------------------
@@ -496,182 +510,205 @@ def _run(cfg, device, dtype, option=None, nranks=0):
     """The eager path: the host loop of one process, or of one rank of a
     world of ``nranks`` (``option``: ``apps.distributed``)."""
     run_t0 = _time.perf_counter()
-    c = Case22(cfg, device, dtype)
-    sys_, ops, n = c.sys, c.ops, c.n
-    newton_cfg = load_newton_config(cfg)
-    newton_print_level = int(cfg.get("newton_print_level", 1))
-    rebuild_freq = max(1, int(cfg.get("newton_jacobian_rebuild_freq", 1)))
-    jacobian_check = bool(cfg.get("jacobian_check", False))
-    jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
-    jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
-    rec = c.make_handler()
-
-    dn = None
-    if nranks:
-        # one distributed Newton instance per flux branch; the current
-        # one takes the moved geometry and the step's slabs each step
-        iter_factory = dn = DistributedNewton(
-            option, nranks, sys_, c.ess_T, c.ess, cfg, device,
-            ale_toggles=c.ale_toggles, gcl_enabled=c.gcl_enabled)
-    else:
-        iter_factory = make_block_linear_solver(
-            cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
-            node_positions=c.fes.node_positions, device=device)
     timer = StepTimer(sync=device_sync(device))
-    newton_inst = lambda branch: dn.get(branch, seb=c.seb(branch))
+    with timer.span("run_setup"):
+        c = Case22(cfg, device, dtype)
+        sys_, ops, n = c.sys, c.ops, c.n
+        newton_cfg = load_newton_config(cfg)
+        newton_print_level = int(cfg.get("newton_print_level", 1))
+        rebuild_freq = max(1, int(cfg.get("newton_jacobian_rebuild_freq",
+                                          1)))
+        jacobian_check = bool(cfg.get("jacobian_check", False))
+        jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
+        jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
+        rec = c.make_handler()
 
-    def residual(T, p, *args):
-        if dn is not None:
-            dt, bc, branch = args[3:6]
-            return dn.residual(newton_inst(branch), T, p, dt, bc=bc)
-        return c.residual(T, p, *args)
+        dn = None
+        if nranks:
+            # one distributed Newton instance per flux branch; the current
+            # one takes the moved geometry and the step's slabs each step
+            iter_factory = dn = DistributedNewton(
+                option, nranks, sys_, c.ess_T, c.ess, cfg, device,
+                ale_toggles=c.ale_toggles, gcl_enabled=c.gcl_enabled)
+        else:
+            iter_factory = make_block_linear_solver(
+                cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
+                node_positions=c.fes.node_positions, device=device)
+        newton_inst = lambda branch: dn.get(branch, seb=c.seb(branch))
 
-    def factorize(T, p, *args):
-        if dn is not None:
-            dt, bc, branch = args[3:6]
+        def residual(T, p, *args):
+            if dn is not None:
+                dt, bc, branch = args[3:6]
+                return dn.residual(newton_inst(branch), T, p, dt, bc=bc)
+            return c.residual(T, p, *args)
+
+        def factorize(T, p, *args):
+            if dn is not None:
+                dt, bc, branch = args[3:6]
+                with timer.phase("jacobian"):
+                    return dn.factorize(newton_inst(branch), T, p, dt,
+                                        bc=bc)
             with timer.phase("jacobian"):
-                return dn.factorize(newton_inst(branch), T, p, dt, bc=bc)
-        with timer.phase("jacobian"):
-            blocks, face = c.jacobians(T, p, *args)
-        with timer.phase("factorization"):
-            if iter_factory is not None:
-                return iter_factory(blocks, face=face,
-                                    face_elem=sys_.trace.elem)
-            return c.host_lu(blocks, face=face)
+                blocks, face = c.jacobians(T, p, *args, phase=timer.phase)
+            with timer.phase("factorization"):
+                if iter_factory is not None:
+                    return iter_factory(blocks, face=face,
+                                        face_elem=sys_.trace.elem)
+                return c.host_lu(blocks, face=face)
 
-    step, t = 0, 0.0
-    T, p = c.initial_fields()
-    state = c.initial_state()
-    loaded = c.load_restart()
-    if loaded is not None:
-        step, t, T, p, state = loaded
-    c.nsteps = num_steps(c.t_final - t, c.dt)
-    write_restart, write_restart_at_end = c.restart_writer(t)
-    last_max_disp, last_quality_ratio = 0.0, 1.0
+        step, t = 0, 0.0
+        T, p = c.initial_fields()
+        state = c.initial_state()
+        loaded = c.load_restart()
+        if loaded is not None:
+            step, t, T, p, state = loaded
+        c.nsteps = num_steps(c.t_final - t, c.dt)
+        write_restart, write_restart_at_end = c.restart_writer(t)
+        last_max_disp, last_quality_ratio = 0.0, 1.0
 
-    def write_outputs(stepno, tnow):
-        v = c.vertices()
-        c.write_step_rows(tnow, T, p, state, v, c.boundary(tnow),
-                          last_max_disp, last_quality_ratio)
-        extra = {} if rec is None else {
-            "mesh_velocity": rec.mesh_velocity,
-            "recession": np.full(n, c.recession_total)}
-        c.save_frame(stepno, tnow, T, p, state, vertices=v, extra=extra)
+        def write_outputs(stepno, tnow):
+            v = c.vertices()
+            c.write_step_rows(tnow, T, p, state, v, c.boundary(tnow),
+                              last_max_disp, last_quality_ratio)
+            extra = {} if rec is None else {
+                "mesh_velocity": rec.mesh_velocity,
+                "recession": np.full(n, c.recession_total)}
+            c.save_frame(stepno, tnow, T, p, state, vertices=v, extra=extra)
 
-    write_outputs(step, t)
-    print(f"Time steps: {c.nsteps}, nominal final time: {c.t_final}")
+        write_outputs(step, t)
+        print(f"Time steps: {c.nsteps}, nominal final time: {c.t_final}")
+    # the rows are the steps': what the set-up counted is dropped
+    timer.step_reset()
     jc_results = {}
     timing, newton_iters, krylov, moved = [], [], [], []
     while t < c.t_final - RESTART_TIME_TOL:
-        step += 1
-        t_prev = t
-        t = min(c.t_final, t + c.dt)
-        dt_step = t - t_prev
-        bc, branch = c.boundary(t)
+        with timer.span("step"):
+            step += 1
+            t_prev = t
+            t = min(c.t_final, t + c.dt)
+            dt_step = t - t_prev
+            bc, branch = c.boundary(t)
 
-        # -- recession (PATO's order: before the solve) --------------------
-        with timer.phase("recession"):
-            J_old = ops.geometric_factors(c.vertices()).detJ \
-                if c.gcl_enabled else None
+            # -- recession (PATO's order: before the solve) ----------------
             wq = None
-            if rec is not None:
-                v_top = sys_.top_boundary_recession_velocity(
-                    T, p, state, bc, branch, c.model, c.bprime,
-                    recession_density_mode=c.density_mode,
-                    recession_density_constant=c.density_constant,
-                    vertices=rec.vertices)
-                rec.prepare_advance(v_top, dt_step)
-                X_new = remap_extents_ale(
-                    c.mesh, ops, state.extent, rec.mesh_velocity_at_qp(ops),
-                    dt_step, rec.vertices)
-                state = dataclasses.replace(state, extent=torch.as_tensor(
-                    X_new, dtype=c.dtype, device=device))
-                out = rec.commit_advance()
-                c.recession_total = out["total_recession"]
-                last_max_disp = out["max_node_disp"]
-                last_quality_ratio = out["min_quality"]
-                wq = rec.mesh_velocity_at_qp(ops)
-            moved.append(rec is not None and out["delta_recession"] > 0)
-            g = c.geometry(ops._vertices(c.vertices()), wq, J_old)
-        X_old = state.extent
-        with timer.phase("state"):
-            T_old_q = ops.values_at_qp(T)
-            p_old_q = ops.values_at_qp(p)
-            if dn is not None:
-                inst = newton_inst(branch)
-                inst.update_geometry(g.verts)
-                dn.set_step(inst, T_old_q, p_old_q, X_old, wq=g.wq,
-                            gcl=g.gcl)
-        with timer.phase("bc"):
-            T, p = c.enforce_bc(T, p, bc, t)
-        args = (T_old_q, p_old_q, X_old, dt_step, bc, branch, g)
-        geo_kw = dict(gf=g.gf, wq=g.wq, gcl=g.gcl,
-                      ale_toggles=c.ale_toggles)
+            with timer.phase("recession_velocity"):
+                J_old = ops.geometric_factors(c.vertices()).detJ \
+                    if c.gcl_enabled else None
+                if rec is not None:
+                    v_top = sys_.top_boundary_recession_velocity(
+                        T, p, state, bc, branch, c.model, c.bprime,
+                        recession_density_mode=c.density_mode,
+                        recession_density_constant=c.density_constant,
+                        vertices=rec.vertices)
+            with timer.phase("mesh_velocity"):
+                if rec is not None:
+                    rec.prepare_advance(v_top, dt_step)
+            with timer.phase("remap"):
+                if rec is not None:
+                    X_new = remap_extents_ale(
+                        c.mesh, ops, state.extent,
+                        rec.mesh_velocity_at_qp(ops), dt_step, rec.vertices)
+                    host_copy(X_new, device)
+                    state = dataclasses.replace(state, extent=torch.as_tensor(
+                        X_new, dtype=c.dtype, device=device))
+            with timer.phase("mesh_move"):
+                if rec is not None:
+                    out = rec.commit_advance()
+                    c.recession_total = out["total_recession"]
+                    last_max_disp = out["max_node_disp"]
+                    last_quality_ratio = out["min_quality"]
+                    wq = rec.mesh_velocity_at_qp(ops)
+                moved.append(rec is not None and out["delta_recession"] > 0)
+                g = c.geometry(ops._vertices(c.vertices()), wq, J_old)
+            X_old = state.extent
+            with timer.phase("state"):
+                T_old_q = ops.values_at_qp(T)
+                p_old_q = ops.values_at_qp(p)
+                if dn is not None:
+                    inst = newton_inst(branch)
+                    inst.update_geometry(g.verts)
+                    dn.set_step(inst, T_old_q, p_old_q, X_old, wq=g.wq,
+                                gcl=g.gcl)
+            with timer.phase("bc"):
+                T, p = c.enforce_bc(T, p, bc, t)
+            args = (T_old_q, p_old_q, X_old, dt_step, bc, branch, g)
+            geo_kw = dict(gf=g.gf, wq=g.wq, gcl=g.gcl,
+                          ale_toggles=c.ale_toggles)
 
-        if jacobian_check and step == 1:
-            rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                      dt_step, abs_tol=jc_abs,
-                                      rel_tol=jc_rel, **geo_kw)
-            jc_results["domain"] = rel
-            print(f"jacobian_check (domain blocks) passed "
-                  f"(max rel err {rel:.3e})")
-        if jacobian_check and branch not in jc_results:
-            # once per surface-flux branch, skipping non-smooth states
-            rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                      dt_step, abs_tol=jc_abs,
-                                      rel_tol=jc_rel, seb=c.seb(branch),
-                                      bc=bc, vertices=g.verts, **geo_kw)
-            jc_results[branch] = rel
-            if rel is None:
-                print(f"jacobian_check (domain+face, branch={branch}) "
-                      f"skipped: non-smooth state (B' table clamp active)")
-            else:
-                print(f"jacobian_check (domain+face, branch={branch}) "
-                      f"passed (max rel err {rel:.3e})")
+            if jacobian_check and step == 1:
+                rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
+                                          dt_step, abs_tol=jc_abs,
+                                          rel_tol=jc_rel, **geo_kw)
+                jc_results["domain"] = rel
+                print(f"jacobian_check (domain blocks) passed "
+                      f"(max rel err {rel:.3e})")
+            if jacobian_check and branch not in jc_results:
+                # once per surface-flux branch, skipping non-smooth states
+                rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
+                                          dt_step, abs_tol=jc_abs,
+                                          rel_tol=jc_rel, seb=c.seb(branch),
+                                          bc=bc, vertices=g.verts, **geo_kw)
+                jc_results[branch] = rel
+                if rel is None:
+                    print(f"jacobian_check (domain+face, branch={branch}) "
+                          f"skipped: non-smooth state (B' table clamp "
+                          f"active)")
+                else:
+                    print(f"jacobian_check (domain+face, branch={branch}) "
+                          f"passed (max rel err {rel:.3e})")
 
-        nsolve0 = len(iter_factory.results) if iter_factory else 0
-        T, p, iters, ntim = run_tp_newton_loop(
-            T, p,
-            residual=lambda T, p: residual(T, p, *args),
-            factorize=lambda T, p: factorize(T, p, *args),
-            enforce_bc=lambda T, p: c.enforce_bc(T, p, bc, t),
-            newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
-            newton_csv=c.newton_csv, step=step, t=t, n=n, timer=timer,
-            print_level=newton_print_level, print_multiline=False)
-        rec_t = timer.step_reset()
-        # the loop's Jacobian time holds the Jacobians and the
-        # factorization, timed apart inside factorize
-        rec_t.update(residual=ntim["nres"], linear=ntim["nlin"],
-                     update=ntim["nupd"])
-        with timer.phase("state"):
-            state = sys_.advance_state(state, T, p, dt_step)
-        with timer.phase("output"):
-            write_outputs(step, t)
-            c.recession_history.append((t, c.recession_total))
-            write_restart(step, t_prev, t, T, p, state.extent)
-        rec_t.update({k: rec_t.get(k, 0.0) + v
-                      for k, v in timer.step_reset().items()})
-        timing.append(c.timing_row(step, rec_t))
-        newton_iters.append(iters)
-        if iter_factory is not None:
-            krylov.append([r.inner_iters
-                           for r in iter_factory.results[nsolve0:]])
-        if step <= 5 or step % 50 == 0:
-            print(f"step={step} t={t:g} [{branch}] newton_iters={iters} "
-                  f"Tmax={float(torch.max(T)):.1f} "
-                  f"recession={c.recession_total:.3e}")
+            nsolve0 = len(iter_factory.results) if iter_factory else 0
+            T, p, iters, ntim = run_tp_newton_loop(
+                T, p,
+                residual=lambda T, p: residual(T, p, *args),
+                factorize=lambda T, p: factorize(T, p, *args),
+                enforce_bc=lambda T, p: c.enforce_bc(T, p, bc, t),
+                newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
+                newton_csv=c.newton_csv, step=step, t=t, n=n, timer=timer,
+                print_level=newton_print_level, print_multiline=False)
+            rec_t = timer.step_reset()
+            # the loop's Jacobian time holds the Jacobians and the
+            # factorization, timed apart inside factorize; the recession is
+            # its four phases
+            rec_t.update(residual=ntim["nres"], linear=ntim["nlin"],
+                         update=ntim["nupd"],
+                         recession=sum(rec_t.get(k, 0.0)
+                                       for k in RECESSION_PHASES))
+            with timer.phase("state"):
+                state = sys_.advance_state(state, T, p, dt_step)
+            with timer.phase("output"):
+                write_outputs(step, t)
+                c.recession_history.append((t, c.recession_total))
+                write_restart(step, t_prev, t, T, p, state.extent)
+            if step <= 5 or step % 50 == 0:
+                host_sync()
+                print(f"step={step} t={t:g} [{branch}] newton_iters={iters} "
+                      f"Tmax={float(torch.max(T)):.1f} "
+                      f"recession={c.recession_total:.3e}")
+            rec_t.update({k: rec_t.get(k, 0.0) + v
+                          for k, v in timer.step_reset().items()})
+            timing.append(c.timing_row(step, rec_t))
+            newton_iters.append(iters)
+            if iter_factory is not None:
+                krylov.append([r.inner_iters
+                               for r in iter_factory.results[nsolve0:]])
+        rec_t["step_wall"] = timer.spans["step"]
 
-    write_restart_at_end(step, t, T, p, state.extent)
-    totals = {k: sum(r.get(k, 0.0) for r in timing)
-              for k in TIMING_KEYS + ("newton", "total")}
-    metrics = c.finish(totals, _time.perf_counter() - run_t0)
-    out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
-           "fes": c.fes, "mesh": c.mesh, "step": step, "time": t,
-           "bprime": c.bprime, "recession_total": c.recession_total,
-           "vertices": c.vertices().copy(), "handler": rec,
-           "recession_history": c.recession_history,
-           "recession_metrics": metrics, "converged": True,
-           "timing": timing, "newton_iters": newton_iters, "moved": moved}
+    with timer.span("run_finish"):
+        write_restart_at_end(step, t, T, p, state.extent)
+        totals = {k: sum(r.get(k, 0.0) for r in timing)
+                  for k in TIMING_KEYS + ("newton", "total")}
+        metrics = c.finish(totals, _time.perf_counter() - run_t0)
+        host_sync(2)
+        out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
+               "fes": c.fes, "mesh": c.mesh, "step": step, "time": t,
+               "bprime": c.bprime, "recession_total": c.recession_total,
+               "vertices": c.vertices().copy(), "handler": rec,
+               "recession_history": c.recession_history,
+               "recession_metrics": metrics, "converged": True,
+               "timing": timing, "newton_iters": newton_iters,
+               "moved": moved}
+    _run_spans(timing, timer)
     if iter_factory is not None:
         out["krylov_iters"] = krylov
     if jacobian_check:

@@ -34,6 +34,7 @@ from ..core.reference_elements import get_reference_element
 from ..ops.assembly import BilinearForm, SpaceOps
 from ..ops.bc import EssentialBC
 from ..solvers import cg, jacobi_preconditioner
+from ..utils.timing import host_copy, host_sync, span_count
 
 
 def quality_tables(mesh, device, dtype=torch.float64):
@@ -65,7 +66,11 @@ def smoothing_rtol(dtype):
 class LaplacianSmoother:
     """The recession-axis component of the smoothed mesh velocity: the
     scalar Laplacian on the current geometry with -v on the top DOFs and 0
-    on the bottom ones, Jacobi-CG at ``smoothing_rtol``, maxiter 500."""
+    on the bottom ones, Jacobi-CG at ``smoothing_rtol``, maxiter 500, run
+    to its tolerance or its cap as MFEM's CGSolver runs it: without the
+    CG's flat-window and detachment exits (``stall_window=0``), which stop
+    it on the deck's 11 x 239 strip after ~80 iterations at a relative
+    residual ~8e-3, where it converges in ~340."""
 
     def __init__(self, fes: FESpace, top_dofs, bottom_dofs, *, device,
                  dtype=torch.float64):
@@ -83,7 +88,8 @@ class LaplacianSmoother:
     def solve(self, verts, v_top, x0=None):
         """The CG result for vertices ``verts`` (nv, dim) and the clamped
         top velocity ``v_top`` (n,) (both tensors); ``x0`` warm-starts the
-        iteration (its top DOFs are set to -v)."""
+        iteration (its top DOFs are set to -v).  Counts its iterations as
+        ``mesh_cg_iters`` on the timer whose span is open."""
         data = self.form.assemble(self.ops.geometric_factors(verts))
         apply_A = lambda u: self.form.apply(data, u)
         diag = torch.where(self.bc.mask, 1.0,
@@ -94,9 +100,12 @@ class LaplacianSmoother:
         if x0 is not None:
             x0 = x0.clone()
             x0[self.top] = -v_top[self.top]
-        return cg(self.bc.constrain_operator(apply_A), B, x0=x0,
-                  M=jacobi_preconditioner(diag),
-                  rtol=smoothing_rtol(B.dtype), maxiter=500)
+        res = cg(self.bc.constrain_operator(apply_A), B, x0=x0,
+                 M=jacobi_preconditioner(diag),
+                 rtol=smoothing_rtol(B.dtype), maxiter=500,
+                 stall_window=0)
+        span_count("mesh_cg_iters", res.iters)
+        return res
 
 
 class MeshRecessionHandler:
@@ -133,6 +142,7 @@ class MeshRecessionHandler:
         self._smoother = None
 
     def _tensor(self, a):
+        host_copy(a, self.device)
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                device=self.device)
 
@@ -155,13 +165,18 @@ class MeshRecessionHandler:
 
     def _min_quality(self, vertices=None) -> float:
         verts = self.vertices if vertices is None else vertices
-        return float(min_quality(self._qual, self._tensor(verts)))
+        q = min_quality(self._qual, self._tensor(verts))
+        host_sync()
+        return float(q)
 
     def clamp_top_velocity(self, v_top, dt):
         """Non-negative, <= max_step_recession/dt, only at top dofs."""
         v = np.zeros(self.n)
-        vin = v_top.detach().cpu().numpy() if torch.is_tensor(v_top) \
-            else np.asarray(v_top)
+        if torch.is_tensor(v_top):
+            host_sync()
+            vin = v_top.detach().cpu().numpy()
+        else:
+            vin = np.asarray(v_top)
         vmax = np.inf
         if np.isfinite(self.max_step_recession) and \
                 self.max_step_recession > 0 and dt > 0:
@@ -198,6 +213,7 @@ class MeshRecessionHandler:
             print(f"WARNING: mesh-velocity CG stalled at residual "
                   f"{res.residual:.3e} after {res.iters} "
                   "iterations; committing the last iterate.")
+        host_sync()
         self.mesh_velocity[:, self.axis] = res.x.cpu().numpy()
         return self.mesh_velocity
 
@@ -244,6 +260,7 @@ class MeshRecessionHandler:
     def mesh_velocity_at_qp(self, ops: SpaceOps):
         """(ne, nq, dim) mesh velocity interpolated to quadrature points,
         a tensor on the device of ``ops``."""
+        host_copy(self.mesh_velocity, ops.device)
         w = torch.as_tensor(self.mesh_velocity, dtype=ops.dtype,
                             device=ops.device)
         return torch.einsum("qn,end->eqd", ops.B, w[ops.eldofs])

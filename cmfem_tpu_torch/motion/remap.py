@@ -23,10 +23,14 @@ import torch
 
 from ..core.pointlocate import locate_points
 from ..core.reference_elements import QUAD, TRIANGLE
+from ..utils.timing import host_sync
 
 
 def _host(a):
-    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    if torch.is_tensor(a):
+        host_sync()
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 class StructuredStripRemap:
