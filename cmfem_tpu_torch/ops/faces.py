@@ -145,13 +145,14 @@ class BoundaryTrace:
         Bf, Gf = fref.eval(self.quad.points)
         self._Bf = real(Bf)
         self._Gf = real(Gf)
+        self._wf = real(self.quad.weights)
 
     # -- geometry ----------------------------------------------------------
 
     def face_factors(self, vertices=None) -> FaceFactors:
         coords = self.ops._vertices(vertices)[self._face_conn]
-        return compute_face_factors(coords, self._Bf, self._Gf,
-                                    self.quad.weights, self._normal_sign)
+        return compute_face_factors(coords, self._Bf, self._Gf, self._wf,
+                                    self._normal_sign)
 
     def element_invJ(self, vertices=None):
         """(nbf, nqf, dim, dim) inverse element Jacobians at face QPs."""

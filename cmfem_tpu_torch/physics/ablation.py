@@ -27,6 +27,7 @@ which has no counterpart here.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +39,8 @@ from .tacot import TacotMaterial
 from ..utils.timing import host_sync, span_count
 
 MU_FLOOR = 1.0e-12
+# the fields of a BoundaryState that the face-Jacobian graph takes as inputs
+_BC_VALUES = ("p_w", "rhoeUeCH", "h_r", "hconv", "Tedge")
 
 @dataclass
 class AblationState:
@@ -77,28 +80,30 @@ def _grad(invJ, gref):
 
 
 class _JacobianGraph:
-    """One key's element Jacobians as a CUDA graph.  The inputs (``T``,
-    ``p``, ``invJ``, ``wdetJ``, ``T_old_q``, ``p_old_q``, ``X_old``, ``wq``,
-    the ``gcl`` pair; ``None`` where not given) are copied into static
-    buffers and ``dt`` into a 0-d device tensor before every replay; no
-    host number reaches the card inside the graph, and the extent sweeps
-    run to their cap there, each frozen where the eager loop would stop
-    (``tacot._extent_sweeps``).  The graph's memory is freed with it."""
+    """One key's Jacobian blocks as a CUDA graph of ``fn(*args,
+    *scalars)``.  The tensor inputs (``None`` where not given, a tuple of
+    tensors where a tuple) are copied into static buffers and the scalars
+    (host numbers) filled into 0-d device tensors before every replay; no
+    host number reaches the card inside the graph.  The graph's memory is
+    freed with it, so nothing it holds may refer back to its owner: a
+    reference cycle would leave the freeing to the garbage collector, which
+    may run inside another graph's capture, where it is not permitted."""
 
     # one capture stream per device: a stream's cuBLAS workspace is kept
     # for the life of the process
     _streams = {}
 
-    def __init__(self, fn, args, dt):
+    def __init__(self, fn, args, scalars):
         self.device = args[0].device
         with torch.cuda.device(self.device):
             self.inputs = [None if a is None else
                            tuple(torch.empty_like(b) for b in a)
                            if isinstance(a, tuple) else torch.empty_like(a)
                            for a in args]
-            self.dt = torch.empty((), dtype=args[0].dtype,
-                                  device=self.device)
-            self._load(args, dt)
+            self.scalars = tuple(torch.empty((), dtype=args[0].dtype,
+                                             device=self.device)
+                                 for _ in scalars)
+            self._load(args, scalars)
             stream = self._streams.get(self.device)
             if stream is None:
                 stream = self._streams[self.device] = torch.cuda.Stream()
@@ -108,23 +113,24 @@ class _JacobianGraph:
             with torch.cuda.stream(stream):
                 self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    self.outputs = fn(*self.inputs, self.dt)
+                    self.outputs = fn(*self.inputs, *self.scalars)
                 finally:
                     self.graph.capture_end()
             current.wait_stream(stream)
 
-    def _load(self, args, dt):
+    def _load(self, args, scalars):
         for buf, a in zip(self.inputs, args):
             if isinstance(buf, tuple):
                 for b, x in zip(buf, a):
                     b.copy_(x)
             elif buf is not None:
                 buf.copy_(a)
-        self.dt.fill_(dt)
+        for buf, x in zip(self.scalars, scalars):
+            buf.fill_(x)
 
-    def __call__(self, args, dt):
+    def __call__(self, args, scalars):
         with torch.cuda.device(self.device):
-            self._load(args, dt)
+            self._load(args, scalars)
             self.graph.replay()
             return tuple(o.clone() for o in self.outputs)
 
@@ -143,7 +149,8 @@ class AblationSystem:
         self.trace = BoundaryTrace(ops, attr_marker=[top_attr])
         self._trace_elem = torch.as_tensor(self.trace.elem, device=ops.device)
         self.lat = None
-        # element_jacobians' CUDA graphs by key (None: seen once, eager)
+        # element_jacobians' and seb_face_jacobians' CUDA graphs by key
+        # (None: seen once, eager)
         self._graphs = {}
 
     def set_dof_lattice(self, lat):
@@ -321,23 +328,35 @@ class AblationSystem:
         ale_toggles = tuple(bool(a) for a in ale_toggles)
         args = (T, p, gf.invJ, gf.wdetJ, T_old_q, p_old_q, X_old, wq,
                 None if gcl is None else tuple(gcl))
-        if T.device.type != "cuda":
-            span_count("jacobian_eager")
-            return self._element_jacobians(*args, dt, ale_toggles)
         key = (self.ne, self.nq, self.ops.eldofs.shape[1], X_old.shape[-1],
                T.dtype, T.device, wq is not None, gcl is not None,
                ale_toggles)
-        graph, kind = self._graphs.get(key), "jacobian_replays"
+        return self._by_key(
+            "jacobian", key,
+            lambda: self._element_jacobians(*args, dt, ale_toggles),
+            lambda: self._capture_jacobians(args, dt, ale_toggles),
+            args, (dt,))
+
+    def _by_key(self, name, key, eager, capture, args, scalars):
+        """A key's Jacobian call: ``eager()`` on the CPU, and on a CUDA
+        device at the key's first call; its second call ``capture()``s a
+        ``_JacobianGraph`` and replays it, later calls replay it at
+        ``args`` and ``scalars`` (a capture that returns None leaves every
+        call eager).  Counts ``<name>_eager``, ``<name>_captures`` or
+        ``<name>_replays`` on the timer whose span is open."""
+        if args[0].device.type != "cuda":
+            span_count(name + "_eager")
+            return eager()
+        graph, kind = self._graphs.get(key), name + "_replays"
         if graph is None and key in self._graphs:
-            graph = self._graphs[key] = self._capture_jacobians(
-                args, dt, ale_toggles)
-            kind = "jacobian_captures"
+            graph = self._graphs[key] = capture()
+            kind = name + "_captures"
         if graph is None:
             self._graphs[key] = None
-            span_count("jacobian_eager")
-            return self._element_jacobians(*args, dt, ale_toggles)
+            span_count(name + "_eager")
+            return eager()
         span_count(kind)
-        return graph(args, dt)
+        return graph(args, scalars)
 
     def _element_jacobians(self, T, p, invJ, wdetJ, T_old_q, p_old_q, X_old,
                            wq, gcl, dt, ale_toggles):
@@ -359,9 +378,11 @@ class AblationSystem:
 
     def _capture_jacobians(self, args, dt, ale_toggles):
         """The CUDA graph of ``_element_jacobians`` at these arguments'
-        key (``_JacobianGraph``)."""
+        key (``_JacobianGraph``): the extent sweeps run to their cap there,
+        each frozen where the eager loop would stop
+        (``tacot._extent_sweeps``)."""
         return _JacobianGraph(
-            lambda *a: self._element_jacobians(*a, ale_toggles), args, dt)
+            lambda *a: self._element_jacobians(*a, ale_toggles), args, (dt,))
 
     # -- checks, state advance, diagnostics -------------------------------
 
@@ -652,14 +673,56 @@ class AblationSystem:
     def seb_face_jacobians(self, T, p, extent, bc, branch, model, bprime,
                            vertices=None):
         """(nbf, nd, nd) x2 face Jacobian blocks d(rT_face)/d(elT, elp), all
-        faces in one ``vmap(jacfwd)``."""
+        faces in one ``vmap(jacfwd)``.
+
+        On a CUDA device the call is kept as a CUDA graph per key, as
+        ``element_jacobians`` keeps its own: the key is the shapes, dtype
+        and device, ``branch``, ``bc``'s static fields, ``model``'s fields
+        and the B' table, so a branch or a table of its own captures anew.
+        The graph's inputs are T, p, the face geometry of ``vertices``
+        (``invJ``, ``normal``, ``wdS``: the mesh moves between calls), the
+        representative extents and ``bc``'s boundary values (0-d device
+        tensors: a key never holds them).  The eager call takes the same
+        values as 0-d tensors, so it runs what the graph replays.  Each
+        call counts ``face_jacobian_eager``, ``face_jacobian_captures`` or
+        ``face_jacobian_replays`` on the timer whose span is open."""
         tr = self.trace
         ff = tr.face_factors(vertices)
+        args = (T, p, tr.element_invJ(vertices), ff.normal, ff.wdS,
+                extent[self._trace_elem, 0])
+        values = tuple(float(getattr(bc, k)) for k in _BC_VALUES)
+        static = (bc, branch, model, bprime)
+        key = (tr.nbf, tr.quad.nqp, tr.eldofs.shape[1], extent.shape[-1],
+               T.dtype, T.device, branch, bc.has_hconv, bc.has_Tedge,
+               bc.chemistryOn, dataclasses.astuple(model), id(bprime))
+
+        def eager():
+            full = lambda v: torch.full((), v, dtype=T.dtype, device=T.device)
+            return self._face_jacobians(*args, *map(full, values), *static)
+
+        return self._by_key(
+            "face_jacobian", key, eager,
+            lambda: self._capture_face_jacobians(args, values, static),
+            args, values)
+
+    def _face_jacobians(self, T, p, invJ, normal, wdS, Xrep, p_w, rhoeUeCH,
+                        h_r, hconv, Tedge, bc, branch, model, bprime):
+        bc = dataclasses.replace(bc, p_w=p_w, rhoeUeCH=rhoeUeCH, h_r=h_r,
+                                 hconv=hconv, Tedge=Tedge)
+        tr = self.trace
         face_res = self.seb_face_res_fn(bc, branch, model, bprime)
         jacf = torch.func.vmap(torch.func.jacfwd(face_res, argnums=(0, 1)))
         return jacf(T[tr.eldofs], p[tr.eldofs], tr.Btab[tr._combo_t],
-                    tr.Gtab[tr._combo_t], tr.element_invJ(vertices),
-                    ff.normal, ff.wdS, extent[self._trace_elem, 0])
+                    tr.Gtab[tr._combo_t], invJ, normal, wdS, Xrep)
+
+    def _capture_face_jacobians(self, args, values, static):
+        """The CUDA graph of ``_face_jacobians`` at these arguments' key
+        (``_JacobianGraph``).  It keeps ``static``: the graph reads the B'
+        table's device arrays, and the key holds the table's ``id``."""
+        graph = _JacobianGraph(lambda *a: self._face_jacobians(*a, *static),
+                               args, values)
+        graph.static = static
+        return graph
 
     _SURF_KEYS = ("m_dot_c_surf", "rho_s_surf", "BprimeG_surf",
                   "BprimeC_surf", "h_w_surf", "emissivity_surf",

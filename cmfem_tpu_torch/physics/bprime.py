@@ -14,8 +14,11 @@ intervals by one-hot contractions (gathers scalarize on the TPU), the
 port finds them with ``torch.searchsorted`` on detached values and
 gathers, so the derivative flows through the weights only, as there.
 A uniform table (every level on one T grid) evaluates all its levels with
-one interval search (``tacot._spline_eval_levels``).  Every ``jnp.clip``
-of the JAX version whose argument can sit on a bound is written
+one interval search (``tacot._spline_eval_levels``).  The level tables,
+the axes and the log floor go to a device once, into the table's
+``tacot._DeviceCache``, and the clip bounds are fills on it, so a lookup
+copies nothing from the host and a CUDA graph may capture it.  Every
+``jnp.clip`` of the JAX version whose argument can sit on a bound is written
 ``torch.minimum(torch.maximum(x, lo), hi)``: that splits the derivative
 0.5 / 0.5 at a tie, as ``jnp.clip`` does (``torch.clamp`` passes 1).
 """
@@ -27,7 +30,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .tacot import _spline_eval_levels, natural_spline_y2, spline_eval
+from .tacot import (_DeviceCache, _spline_eval_levels, natural_spline_y2,
+                    spline_eval)
 
 
 @dataclass
@@ -37,11 +41,15 @@ class ClampStats:
     t: int = 0
 
 
+def _const(c, like):
+    """The number ``c`` as a 0-d tensor in ``like``'s dtype on its device,
+    by a fill: no copy from the host."""
+    return torch.full((), c, dtype=like.dtype, device=like.device)
+
+
 def _clip(x, lo, hi):
     """``jnp.clip``'s value and derivative rule (0.5 at a tie)."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return torch.minimum(torch.maximum(x, _const(lo, x)), _const(hi, x))
 
 
 def _interval(levels, q):
@@ -65,6 +73,8 @@ class BPrimeTable:
     hw2: np.ndarray
     uniform: bool = True       # every level shares identical T knots
     clamp_stats: ClampStats = field(default_factory=ClampStats)
+    _dev: _DeviceCache = field(default_factory=_DeviceCache, repr=False,
+                               compare=False)
 
     @property
     def T(self):
@@ -174,23 +184,26 @@ class BPrimeTable:
 
     # -- lookup ------------------------------------------------------------
 
-    def _eval_levels(self, y, y2, T):
-        """Splines of every (p, B'g) level at T: (val, dT, clamped), each
-        (Lp, Lbg, *T.shape)."""
+    def _eval_levels(self, name, T):
+        """Splines of every (p, B'g) level of the table ``name`` ("bc" or
+        "hw") at T: (val, dT, clamped), each (Lp, Lbg, *T.shape)."""
         Lp, Lbg, nT = self.T_tab.shape
-        t = lambda a: torch.as_tensor(a, dtype=T.dtype, device=T.device)
+        dev = lambda key, a: self._dev.get(key, a, T)
+        y = dev(name, getattr(self, name))
+        y2 = dev(name + "2", getattr(self, name + "2"))
         if self.uniform:
-            v, d, c = _spline_eval_levels(t(self.T_tab[0, 0]),
-                                          t(y.reshape(Lp * Lbg, nT)),
-                                          t(y2.reshape(Lp * Lbg, nT)), T)
+            v, d, c = _spline_eval_levels(dev("T0", self.T_tab[0, 0]),
+                                          y.reshape(Lp * Lbg, nT),
+                                          y2.reshape(Lp * Lbg, nT), T)
             shape = (Lp, Lbg) + tuple(T.shape)
             return v.reshape(shape), d.reshape(shape), c.reshape(shape)
+        T_tab = dev("T_tab", self.T_tab)
         vals, ders, cls_ = [], [], []
         for i in range(Lp):
             for j in range(Lbg):
                 lo, hi = self.T_tab[i, j, 0], self.T_hi[i, j]
-                v, d, _ = spline_eval(t(self.T_tab[i, j]), t(y[i, j]),
-                                      t(y2[i, j]), _clip(T, lo, hi))
+                v, d, _ = spline_eval(T_tab[i, j], y[i, j], y2[i, j],
+                                      _clip(T, lo, hi))
                 c = (T < lo) | (T > hi)
                 vals.append(v)
                 ders.append(torch.where(c, 0.0, d))
@@ -216,14 +229,14 @@ class BPrimeTable:
         ps, bgs = self.p_levels, self.bg_levels
         Lp = len(ps)
 
-        bc_v, bc_d, bc_c = self._eval_levels(self.bc, self.bc2, T)
-        hw_v, hw_d, hw_c = self._eval_levels(self.hw, self.hw2, T)
+        bc_v, bc_d, bc_c = self._eval_levels("bc", T)
+        hw_v, hw_d, hw_c = self._eval_levels("hw", T)
 
         # B'g axis: clamp + linear
         bg_min, bg_max = bgs[0], bgs[-1]
         bg_q = _clip(bg, bg_min, bg_max)
         clamped_bg = (bg < bg_min) | (bg > bg_max)
-        bgs_t = t(bgs)
+        bgs_t = self._dev.get("bg_levels", bgs, T)
         lj, hj = _interval(bgs_t, bg_q)
         bg0, bg1 = bgs_t[lj], bgs_t[hj]
         wbg = (bg_q - bg0) / (bg1 - bg0)
@@ -258,9 +271,9 @@ class BPrimeTable:
         if Lp == 1:
             mix = lambda a: a[0]
         else:
-            ps_t = t(ps)
+            ps_t = self._dev.get("p_levels", ps, T)
             lo, hi = _interval(ps_t, p_q)
-            floor = t(1e-30)
+            floor = self._dev.get("log_floor", 1e-30, T)
             lp0 = torch.log(torch.maximum(ps_t[lo], floor))
             lp1 = torch.log(torch.maximum(ps_t[hi], floor))
             w = (torch.log(torch.maximum(p_q, floor)) - lp0) / (lp1 - lp0)

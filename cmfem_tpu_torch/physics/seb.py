@@ -17,6 +17,12 @@ schedule time).  ``jnp.maximum``/``jnp.minimum`` become ``torch.maximum``/
 does: at the first Newton iterate p is uniform, so the wall mass flux is
 exactly 0 and ``solve_blowing``'s ``max(raw, 0)`` sits on its tie, where
 the face Jacobian equals JAX's only under the same rule.
+
+The boundary values of a ``BoundaryState`` (``p_w``, ``rhoeUeCH``,
+``h_r``, ``hconv``, ``Tedge``) may be floats or 0-d tensors on the
+device, as the face-Jacobian CUDA graph passes them: the arithmetic on
+them is the same either way, and with tensors nothing is read back or
+copied from the host.  The constant bounds are fills on the device.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bprime import BPrimeTable
+from .bprime import BPrimeTable, _const
 from .surface_bc import BoundaryState
 
 BRANCH_CHEMISTRY_BLOWING = "chemistry_blowing"
@@ -71,8 +77,18 @@ def classify_branch(bc: BoundaryState, model: SurfaceFluxModel) -> str:
 
 
 def _max(x, c):
-    return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype,
-                                            device=x.device))
+    return torch.maximum(x, _const(c, x))
+
+
+def _floor(v, c):
+    """max(v, c) of a boundary value (a float or a 0-d tensor)."""
+    return torch.clamp(v, min=c) if torch.is_tensor(v) else max(float(v), c)
+
+
+def _full(like, v):
+    """A boundary value (a float or a 0-d tensor) in ``like``'s shape."""
+    return v.expand_as(like) if torch.is_tensor(v) else \
+        torch.full_like(like, v)
 
 
 def blowing_correction(Bg, lam):
@@ -99,7 +115,7 @@ def solve_blowing(m_dot_g_w, rhoeUeCH, lam, enable: bool):
     phi = torch.ones_like(m_dot_g_w)
     # floored: a schedule point with rhoeUeCH == 0 reaching the blowing
     # branch must not produce inf -> NaN(phi)
-    rhoeUeCH_eff = max(float(rhoeUeCH), 1e-12)
+    rhoeUeCH_eff = _floor(rhoeUeCH, 1e-12)
     for _ in range(3):
         raw = m_dot_g_w / (rhoeUeCH_eff * _max(phi, 1e-12))
         Bg = _max(raw, 0.0)
@@ -120,13 +136,13 @@ def solve_blowing_22(m_dot_g_w, rhoeUeCH, p_w, T_w, bprime: BPrimeTable,
     if not enable:
         out = (z, z, torch.ones_like(z))
         return out + (lut,) if return_lut else out
-    rhoeUeCH_eff = max(float(rhoeUeCH), 1e-12)
+    rhoeUeCH_eff = _floor(rhoeUeCH, 1e-12)
     Bc = z
     phi = torch.ones_like(z)
     for _ in range(8):
         Bg = _max(m_dot_g_w / (rhoeUeCH_eff * _max(phi, 1e-12)), 0.0)
         if chemistry_on and not strict:
-            lut = bprime.lookup(torch.full_like(Bg, float(p_w)), Bg, T_w)
+            lut = bprime.lookup(_full(Bg, p_w), Bg, T_w)
             Bc = lut["bc"]
         else:
             Bc = z
@@ -169,7 +185,7 @@ def surface_flux(m_dot_g_w, h_g, T_w, emissivity, absorptivity, reflectivity,
         return out
 
     chemistry_on = bc.chemistryOn != 0
-    rhoeUeCH = max(0.0, bc.rhoeUeCH)
+    rhoeUeCH = _floor(bc.rhoeUeCH, 0.0)
     blowing_active = branch == BRANCH_CHEMISTRY_BLOWING
     if model.case22:
         Bg, _, phi, lut22 = solve_blowing_22(
@@ -187,8 +203,8 @@ def surface_flux(m_dot_g_w, h_g, T_w, emissivity, absorptivity, reflectivity,
             # (p_w, B'g, T_w): reuse it instead of a 9th table pass
             lut = lut22
         else:
-            lut = bprime.lookup(torch.full_like(zeros, float(bc.p_w)), Bg,
-                                T_w, count_clamps=count_clamps)
+            lut = bprime.lookup(_full(zeros, bc.p_w), Bg, T_w,
+                                count_clamps=count_clamps)
         h_w = lut["hw"] if chemistry_on else zeros
         bc_val = lut["bc"]
         count = lambda m: torch.sum(m.to(T_w.dtype))

@@ -8,7 +8,9 @@ interpolation of the chemistry toggle; and ``TopTemperatureSchedule``.
 
 Numpy only.  A ``BoundaryState`` holds Python floats and a static
 ``chemistryOn``: the residuals and their Jacobian transforms take it from
-their closure, so it is no pytree here.
+their closure, so it is no pytree here.  Inside the face Jacobians its
+boundary values are 0-d device tensors (``physics/seb.py``), the inputs
+of their CUDA graph.
 """
 
 from __future__ import annotations

@@ -143,6 +143,11 @@ class _DeviceCache:
                                            device=like.device)
         return self._c[key]
 
+    def __reduce__(self):
+        # a copy (a pickle to another process) starts empty: the entries
+        # are made again from the numpy constants at first use
+        return (_DeviceCache, ())
+
 
 @dataclass
 class PropertyTable:

@@ -27,12 +27,12 @@ MODES = {"lu": {}, "scan": {"scan_stepping": True}}
 # the extent solves' convergence tests, the copies of host numbers (dt, the
 # wall temperature, the deck's constants at first use), the state's
 # diagnostics and the outputs (the scan path's frame at the run's last step)
-SYNCS = {"lu": [217, 144], "scan": [245, 179]}
-# a 1-step run's step on the card: the CPU's 217 (lu) and 259 (scan) less
+SYNCS = {"lu": [216, 143], "scan": [244, 178]}
+# a 1-step run's step on the card: the CPU's 216 (lu) and 258 (scan) less
 # the waits of the three element-Jacobian calls after the first, which
 # capture and replay a CUDA graph and wait for nothing (42: their extent
 # sweeps' convergence tests and their copies of dt)
-ONE_STEP = {"lu": 175, "scan": 217}
+ONE_STEP = {"lu": 174, "scan": 216}
 # the element-Jacobian calls of those steps (one a Newton iteration)
 JACOBIANS = {"lu": [4, 3], "scan": [4, 3]}
 

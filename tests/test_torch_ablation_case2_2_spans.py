@@ -6,9 +6,10 @@ SEB face blocks) lies inside its ``jacobian``; the moving mesh's four
 phases sum to its ``recession``; the smoother counts its CG iterations
 (``mesh_cg_iters``) on a moving step; the first row carries the run's
 ``run_setup`` and the last its ``run_finish``; the per-step timing CSV
-keeps its columns; and the benchmark's three readers of these rows
+keeps its columns; the benchmark's three readers of these rows
 (``face_jacobian_ms_per_step``, ``mesh_motion_ms_per_step``,
-``mesh_cg_iters_per_step``) read them.
+``mesh_cg_iters_per_step``) read them; and every face-Jacobian call is
+counted, eager on the CPU (``face_jacobian_graph_replay_pct`` reads 0).
 
 Run: ``python -m pytest tests/test_torch_ablation_case2_2_spans.py -q``"""
 
@@ -97,3 +98,19 @@ def test_benchmark_readers_read_the_rows(run, name):
     scale = 1.0 if key == "mesh_cg_iters" else 1e3
     assert value == pytest.approx(scale * sum(r[key] for r in rows)
                                   / len(rows))
+
+
+def test_face_jacobian_calls_are_counted_eager_on_the_cpu(run):
+    """One face-Jacobian call with each element-Jacobian call, all eager on
+    the CPU; the reader of ``face_jacobian_graph_replay_pct`` reads 0."""
+    sys.path.insert(0, ROOT)
+    from bench_port import harness
+
+    rows = run[0]["timing"]
+    for r in rows:
+        assert r["face_jacobian_eager"] == r["jacobian_eager"] > 0
+        assert "face_jacobian_captures" not in r
+        assert "face_jacobian_replays" not in r
+    read = harness.load_module("metrics",
+                               "face_jacobian_graph_replay_pct").read
+    assert read({"unit": "step", "timing_rows": rows}) == 0.0
