@@ -10,9 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      printed; the sum-factorization lane kernel's instantiations and the
      float32 instantiations of the tiled B^T D B kernel, hexes at orders
      2-4, must not spill; that kernel's resident blocks per SM);
-  2. the sum-factorization kernel (one launch of the lane kernel) and the
-     earlier colour design (``sumfact_apply_colour``) against their plain
-     version, orders 1-4 on the (3,4,5), (6,6,6) and (7,5,9) grids ((7,5,9)
+  2. the sum-factorization kernel (one launch of the lane kernel) against
+     its plain version, orders 1-4 on the (3,4,5), (6,6,6) and (7,5,9) grids ((7,5,9)
      is ragged: nx is no multiple of the elements per block): the
      constant-coefficient CDR form
      (z-periodic and full D), the form with kappa = 0.1 + z^2 (full D that
@@ -68,9 +67,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      share of the bound; ``PAOperator.bind()``'s apply alone in entity
      numbering (``u[eldofs_T]``, B1, ``index_add_``; device time as in 7)
      beside B1's, at every order; the element-local kernel on Dz
-     (B2) and on full D (B3) in turns against the colour design (colour,
-     lane, lane, colour; device time as in 7), each beside its bound and
-     its share of the bound; peak
+     (B2) and on full D (B3) alone (device time as in 7), each beside its
+     bound and its share of the bound; peak
      device memory of each order; (c) the BE steps at 48^3, orders 3 and
      4: ``vc_entry`` through ``best_bind`` (full-D kernel) and through
      ``bind_zchain()``, ``entry`` through ``best_bind`` (Dz kernel) and
@@ -78,8 +76,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      (|M(B-Ax)|/|MB| <= 2e-6; a GMRES that stops on stagnation at the
      float32 floor 16 eps = 1.907e-6 counts if it meets that) and the two
      solutions of a form agree to 1e-4 in the 2-norm; the ``best_bind``
-     step is also timed in turns against the same step through the colour
-     design (lane, colour, lane); then the same kappa(z) step
+     step runs twice; then the same kappa(z) step
      through ``vc_entry(operator="pa")``, the element-batched operator in
      entity numbering on the B^T D B kernel: it launches that kernel only,
      converges like the others, and its solution, moved to the lattice,
@@ -254,9 +251,7 @@ Each main path (4, 5, 6, 8b's applies, 8c, 14a, 16) runs with every launch
 count set to 0 just before it and read just after.  The last lines are the kernels'
 JSON record (each kernel's launches on the main paths, error, times, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
-FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates; for the
-sum-factorization kernel also ``earlier_ms``, the colour design's time in
-the same run), before it the drivers' JSON records (phase 9's, phase 10's,
+FLOPs over 67 TFLOP/s, the H100 SXM's HBM3 and float32 rates), before it the drivers' JSON records (phase 9's, phase 10's,
 phase 11's, phase 12's and phase 13's: DOFs, steps, seconds per step,
 Newton and Krylov iterations, errors; phases 10-13 with the card; phase
 14's {"linemg", "distributed", "gloo_on_card"}; phase 15's
@@ -464,14 +459,14 @@ def in_turns(kernel, plain, reps=50, graph=False):
 
 
 def reset_counts():
-    ksum.launches = ksum.launches_fulld = ksum.launches_colour = 0
+    ksum.launches = ksum.launches_fulld = 0
     kbtdb.launches = kz.launches = kz.launches_periodic = 0
     klmg.launches_factor = klmg.launches_solve = 0
 
 
 def counts():
     return {"sumfact": ksum.launches, "sumfact_fulld": ksum.launches_fulld,
-            "sumfact_colour": ksum.launches_colour, "btdb": kbtdb.launches,
+            "btdb": kbtdb.launches,
             "zchain": kz.launches, "zchain_periodic": kz.launches_periodic,
             "line_factor": klmg.launches_factor,
             "line_solve": klmg.launches_solve}
@@ -2644,20 +2639,13 @@ def main():
                         fp, Dp = op.bind(use_periodic=periodic)
                         err, _ = compare(lambda v: fk(v, Dk),
                                          lambda v: fp(v, Dp), u)
-                        before = ksum.launches_colour
-                        err_c, _ = compare(
-                            lambda v: ksum.sumfact_apply_colour(
-                                v, Dk, op.tab, op._mats, periodic),
-                            lambda v: fp(v, Dp), u)
-                        assert ksum.launches_colour == before + 1
-                        ok = max(err, err_c) <= TOL[dtype]
+                        ok = err <= TOL[dtype]
                         what = (f"n={n} p={order} {str(dtype)[6:]} {name} "
                                 f"{'z-periodic' if periodic else 'full D'}")
-                        log(f"phase 2: {what}: max|k-p|/max|p| = {err:.3e}, "
-                            f"colour design {err_c:.3e} (tol "
-                            f"{TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
-                        assert ok, (n, order, dtype, name, periodic, err,
-                                    err_c)
+                        log(f"phase 2: {what}: max|k-p|/max|p| = {err:.3e} "
+                            f"(tol {TOL[dtype]:.0e}) "
+                            f"{'ok' if ok else 'FAIL'}")
+                        assert ok, (n, order, dtype, name, periodic, err)
                         # B4: the z-chain kernel on the same x/y fields,
                         # then the whole bind_zchain apply against bind()
                         fz, Dz = op.bind_zchain(use_periodic=periodic)
@@ -3020,30 +3008,19 @@ def main():
                 f"{call:.4f} ms; bound {bms:.4f} ms ({by})")
         del T
         # the element-local kernel at this order (B2 on Dz, B3's launch on
-        # full D) in turns against the colour design: device time beside
-        # the bound and the share of it
-        for name, key, periodic in (("sumfact-zfma-periodic", "B2", True),
-                                    ("sumfact-fused", "B3", False)):
+        # full D) alone: device time beside the bound and the share of it
+        for name, key in (("sumfact-zfma-periodic", "B2"),
+                          ("sumfact-fused", "B3")):
             fn, arrays = P.paths[name]
             Dk = arrays[0]
-            err, _ = compare(lambda v: fn(v, Dk),
-                             lambda v: ksum.sumfact_apply_colour(
-                                 v, Dk, sf.tab, sf._mats, periodic), u)
-            assert err <= TOL[F32], (order, name, err)
-            k, c = in_turns(lambda: fn(u, Dk),
-                            lambda: ksum.sumfact_apply_colour(
-                                u, Dk, sf.tab, sf._mats, periodic),
-                            graph=True)
+            k = [graph_ms(lambda: fn(u, Dk)) for _ in range(2)]
             bnd = bound(nbytes(Dk, u, u), sumfact_flops(sf))
             by_order[key][f"p{order}"] = {
-                "ms": min(k), "earlier_ms": min(c), "bound_ms": bnd[0],
-                "bound_by": bnd[1], "share": bnd[0] / min(k),
-                "earlier_share": bnd[0] / min(c)}
-            log(f"phase 8b: p={order} {name} ({key}) device ms per call, "
-                f"in turns colour/lane/lane/colour: lane {k}, colour {c}; "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]}); share of the bound: "
-                f"lane {bnd[0] / min(k):.3f}, colour {bnd[0] / min(c):.3f}; "
-                f"lane vs colour max|d|/max|y| {err:.3e}")
+                "ms": min(k), "bound_ms": bnd[0], "bound_by": bnd[1],
+                "share": bnd[0] / min(k)}
+            log(f"phase 8b: p={order} {name} ({key}) device ms per call "
+                f"{k}; bound {bnd[0]:.4f} ms ({bnd[1]}); share of the "
+                f"bound {bnd[0] / min(k):.3f}")
         # the PA apply alone, in entity numbering: gather, B1, index_add_
         # (the sweep's "pa" also moves u and y between the numberings)
         pa_fn, pa_D, pa_el = P.pa.bind()
@@ -3108,19 +3085,13 @@ def main():
             assert step.path == path, step.path
             res_b, s_b, l_b = check_step(step, u0, (D,),
                                          f"{label} best_bind", floor_ok=True)
-            # the same step through the colour design, in turns (lane
-            # above, colour, lane): does the kernel's gain reach the step?
+            # the step again: the first pays one-time costs
             op = step.op
-            colour = lambda v, Dc: ksum.sumfact_apply_colour(
-                v, Dc, op.tab, op._mats, periodic)
-            step_s = {"lane": [s_b], "colour": []}
-            for name in ("colour", "lane"):
-                _, s, _ = check_step(step, u0, (D,), f"{label} {name}",
-                                     fn=colour if name == "colour" else None,
-                                     floor_ok=True)
-                step_s[name].append(s)
-            log(f"{label}: step s in turns (lane, colour, lane): "
-                f"{step_s}")
+            step_s = {"lane": [s_b]}
+            _, s, _ = check_step(step, u0, (D,), f"{label} lane",
+                                 floor_ok=True)
+            step_s["lane"].append(s)
+            log(f"{label}: step s {step_s['lane']}")
             fz, Dz = op.bind_zchain(use_periodic=periodic)
             res_z, _, l_z = check_step(step, u0, (Dz,), f"{label} zchain",
                                        fn=fz, floor_ok=True)
@@ -3168,7 +3139,7 @@ def main():
                 b2_launches += l_b["sumfact"]
             else:
                 b3_launches += l_b["sumfact_fulld"]
-            del step, op, colour, u0, D, res_b
+            del step, op, u0, D, res_b
             torch.cuda.empty_cache()
 
     # -- 9. slice 6: the application drivers ---------------------------------
@@ -3298,13 +3269,10 @@ def main():
                shapes_checked=len(b1_shapes)),
         record("sumfact_fused", "sumfact_fused.cu",
                "cmfem_tpu/ops/sumfact.py:563", b2_launches, b2_abs, b2_k,
-               b2_p, b2_bound, call_ms=b2_call,
-               earlier_ms=by_order["B2"]["p2"]["earlier_ms"],
-               by_order=by_order["B2"]),
+               b2_p, b2_bound, call_ms=b2_call, by_order=by_order["B2"]),
         record("sumfact_fused_fullD", "sumfact_fused.cu",
                "cmfem_tpu/ops/sumfact.py:365", b3_launches, b3_abs, b3_k,
                b3_p, b3_bound, call_ms=b3_call,
-               earlier_ms=by_order["B3"]["p2"]["earlier_ms"],
                max_abs_err_f64_mg_n48=mg_abs, by_order=by_order["B3"]),
         *[record(name, "linemg.cu",
                  f"cmfem_tpu/solvers/linemg.py:{line} (an XLA lax.scan; "

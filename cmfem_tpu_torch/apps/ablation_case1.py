@@ -21,16 +21,14 @@ and ParaView fields including per-reaction extents.
 
 Case 1 runs in float64 only (the equilibrated Jacobian's condition number
 is ~1e15); the JAX package's float32 stall machinery is kept in the Newton
-loops, but no float32 run is offered.  ``sharding_devices: N`` and
-``dof_partition: N`` run the eager loop on every rank of a world of N with
-the Newton iterate distributed (``apps.distributed``; rank 0 writes the
+loops, but no float32 run is offered.  The eager path is
+``apps.ablation_loop``'s loop over ``Case1``'s hooks; ``sharding_devices:
+N`` and ``dof_partition: N`` run it on every rank of a world of N with the
+Newton iterate distributed (``apps.distributed``; rank 0 writes the
 files).  ``run`` returns the JAX driver's keys plus ``converged``,
 ``timing`` (per step: residual, jacobian, factorization, linear, update,
-state, output, total seconds; ``step_wall``, the step's whole wall time;
-``host_syncs``, the times the step made the host wait for the device; the
-first row's ``run_setup`` and the last row's ``run_finish``, the run's
-set-up and finish in seconds) and ``newton_iters`` (linear solves per
-step).
+state, output, total seconds and the loop's spans and counts) and
+``newton_iters`` (linear solves per step).
 """
 
 from __future__ import annotations
@@ -44,12 +42,13 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
+from . import ablation_loop
+from .ablation_loop import TIMING_KEYS, run_spans
 from .common import (
     device_sync, echo_config, ensure_outdir, linear_usable,
-    load_mesh_from_cfg, load_newton_config, make_block_linear_solver,
-    maybe_enable_lattice_residual, maybe_reorder_strip_mesh, num_steps,
-    parse_args, replay_newton_history, resolve_device, device_from_env,
-    run_tp_newton_loop, scan_newton, NewtonStallStats,
+    load_mesh_from_cfg, load_newton_config, maybe_enable_lattice_residual,
+    maybe_reorder_strip_mesh, num_steps, parse_args, replay_newton_history,
+    resolve_device, device_from_env, scan_newton, NewtonStallStats,
 )
 from .distributed import DistributedNewton, run_on_ranks
 from ..io import CsvWriter, VTUCollection, writes_files
@@ -67,8 +66,6 @@ def evaluate_schedule(schedule, t):
 DEFAULT_SCHEDULE = [
     [0.0, 300.0], [0.1, 1644.0], [60.0, 1644.0], [60.1, 300.0], [120.0, 300.0],
 ]
-TIMING_KEYS = ("bc", "residual", "jacobian", "factorization", "linear",
-               "update", "state", "output")
 
 
 def _make_case1_csvs(cfg, output_path, probe_y):
@@ -142,11 +139,15 @@ class Case1:
     """The set-up of a case-1 run, shared by the eager and scan paths (and
     by the smoke run and the profiler, which drive its pieces alone):
     config, material, mesh, space, system, essential DOFs, the probe and
-    front stencils, the CSV streams.  Case 2.1 (``ablation_case2_1.Case21``)
+    front stencils, the CSV streams; and the eager loop's hooks
+    (``apps.ablation_loop``).  Case 2.1 (``ablation_case2_1.Case21``)
     derives from it and replaces the boundary set-up (``_init_boundary``),
-    the essential T DOFs (``ess_T``), the probe points and the CSVs."""
+    the essential T DOFs (``ess_T``), the probe points, the CSVs and the
+    hooks that differ."""
 
     NAME = "ablation_case1"
+    # the Newton loop's iteration lines: five lines each, as the reference's
+    NEWTON_PRINT_MULTILINE = True
     DEFAULTS = {"material_file": "Input/material_tacot_case1.yaml",
                 "output_path": "ParaView/ablation_case1",
                 "collection_name": "ablation_test_case1_2D",
@@ -316,7 +317,9 @@ class Case1:
                        device=self.device)
         return self.enforce_bc(T, p, evaluate_schedule(self.schedule, 0.0))
 
-    def enforce_bc(self, T, p, Tbc):
+    def enforce_bc(self, T, p, Tbc, t=None):
+        """(T, p) with the wall temperature ``Tbc`` and the top pressure on
+        the top boundary (``t``, the time, is case 2.1's)."""
         T, p = T.clone(), p.clone()
         host_copy(Tbc, T.device)
         T[self.ess_t] = Tbc
@@ -385,6 +388,93 @@ class Case1:
             rec.get("state", 0.0), rec.get("output", 0.0), rec["total"]])
         return rec
 
+    # -- the eager loop's hooks (apps.ablation_loop) -------------------------
+
+    def start(self):
+        """(step, t, T, p, state) where the run starts: the initial
+        fields."""
+        T, p = self.initial_fields()
+        state = self.initial_state()
+        print(f"Time steps: {self.nsteps}, nominal final time: "
+              f"{self.nsteps * self.dt}")
+        return 0, 0.0, T, p, state
+
+    def stepping(self, step, t):
+        """Whether a step follows step ``step``: ``nsteps`` in all."""
+        return step < self.nsteps
+
+    def restart_writer(self, t0):
+        """No checkpoints: (write, at_end) that do nothing."""
+        nothing = lambda *args: None
+        return nothing, nothing
+
+    def boundary(self, t):
+        """(wall temperature, no flux branch) of the step ending at t."""
+        return evaluate_schedule(self.schedule, t), None
+
+    def move_mesh(self, timer, T, p, state, t, dt, bnd):
+        """Nothing moves before the solve: (state, no geometry)."""
+        return state, None
+
+    def step_args(self, s):
+        """The arguments after (T, p) of ``residual`` and ``jacobians`` at
+        step ``s`` (``ablation_loop.Step``)."""
+        return s.T_old_q, s.p_old_q, s.X_old, s.dt
+
+    def jacobians(self, T, p, T_old_q, p_old_q, X_old, dt, phase=None):
+        """The element blocks, and no face blocks."""
+        return self.sys.element_jacobians(T, p, T_old_q, p_old_q, X_old,
+                                          dt), None
+
+    def distributed(self, option, nranks):
+        """The Newton iterate distributed over a world of ``nranks``
+        (``apps.distributed``)."""
+        return DistributedNewton(option, nranks, self.sys, self.ess_T,
+                                 self.ess, self.cfg, self.device)
+
+    def newton_instance(self, dn, s):
+        """(instance, face bc) of step ``s``: the one instance, with its
+        slabs of the step's old state; no face term."""
+        inst = dn.get()
+        dn.set_step(inst, s.T_old_q, s.p_old_q, s.X_old)
+        return inst, None
+
+    def geometry_kw(self, s):
+        """The geometry of step ``s`` for ``jacobian_check``: the mesh's."""
+        return {}
+
+    def check_jacobians(self, T, p, s, step, tol, results):
+        """``jacobian_check`` (``tol``: absolute, relative): the domain
+        blocks at step 1, into ``results["domain"]``."""
+        if step == 1:
+            rel = results["domain"] = self.sys.jacobian_check(
+                T, p, s.T_old_q, s.p_old_q, s.X_old, s.dt, abs_tol=tol[0],
+                rel_tol=tol[1], **self.geometry_kw(s))
+            print(f"jacobian_check (domain blocks) passed "
+                  f"(max rel err {rel:.3e})")
+
+    def write_outputs(self, step, t, T, p, state):
+        """The probe and mass rows of time t and its ParaView frame."""
+        host_sync()
+        mdot = float(self.sys.top_boundary_mass_flux(T, p, state))
+        host_sync()
+        self.write_rows(t, self.probes(T).cpu().numpy(), mdot,
+                        state.tau_elem)
+        self.save_frame(step, t, T, p, state)
+
+    def progress(self, step, t, bnd, iters, T, state):
+        """The progress line of the first five steps, every 50th and the
+        last."""
+        if step <= 5 or step % 50 == 0 or step == self.nsteps:
+            host_sync()
+            print(f"step={step} t={t:g} newton_iters={iters} "
+                  f"Tmax={float(torch.max(T)):.1f} "
+                  f"tau_min={state.tau_elem.min():.4f}")
+
+    def results(self, step, t, metrics):
+        """The case's own keys of a run's result: none."""
+        return {}
+
 
 def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     device = resolve_device(device)
@@ -398,141 +488,7 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
 
 
 def _run(cfg, device, dtype, option=None, nranks=0):
-    """The eager path: the host loop of one process, or of one rank of a
-    world of ``nranks`` (``option``: ``apps.distributed``)."""
-    run_t0 = _time.perf_counter()
-    timer = StepTimer(sync=device_sync(device))
-    with timer.span("run_setup"):
-        c = Case1(cfg, device, dtype)
-        sys_, ops, n = c.sys, c.ops, c.n
-        newton_cfg = load_newton_config(cfg)
-        newton_print_level = int(cfg.get("newton_print_level", 1))
-        rebuild_freq = max(1, int(cfg.get("newton_jacobian_rebuild_freq",
-                                          1)))
-        jacobian_check = bool(cfg.get("jacobian_check", False))
-        jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
-        jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
-
-        dn = inst = None
-        if nranks:
-            # the Newton iterate distributed over the world; the step's
-            # old-state slabs are taken at each step start
-            iter_factory = dn = DistributedNewton(option, nranks, sys_, c.ess,
-                                                  c.ess, cfg, device)
-            inst = dn.get()
-        else:
-            iter_factory = make_block_linear_solver(
-                cfg, c.fes.element_dofs, n, c.ess, c.ess,
-                node_positions=c.fes.node_positions, device=device)
-
-        def residual(T, p, T_old_q, p_old_q, X_old, dt):
-            if dn is not None:
-                return dn.residual(inst, T, p, dt)
-            return c.residual(T, p, T_old_q, p_old_q, X_old, dt)
-
-        def factorize(T, p, T_old_q, p_old_q, X_old, dt):
-            if dn is not None:
-                with timer.phase("jacobian"):
-                    return dn.factorize(inst, T, p, dt)
-            with timer.phase("jacobian"):
-                blocks = sys_.element_jacobians(T, p, T_old_q, p_old_q,
-                                                X_old, dt)
-            with timer.phase("factorization"):
-                if iter_factory is not None:
-                    return iter_factory(blocks)
-                return c.host_lu(blocks)
-
-        T, p = c.initial_fields()
-        state = c.initial_state()
-
-        def write_outputs(step, t):
-            host_sync()
-            mdot = float(sys_.top_boundary_mass_flux(T, p, state))
-            host_sync()
-            c.write_rows(t, c.probes(T).cpu().numpy(), mdot, state.tau_elem)
-            c.save_frame(step, t, T, p, state)
-
-        write_outputs(0, 0.0)
-        print(f"Time steps: {c.nsteps}, nominal final time: "
-              f"{c.nsteps * c.dt}")
-    # the rows are the steps': what the set-up counted is dropped
-    timer.step_reset()
-    t = 0.0
-    timing, newton_iters, krylov = [], [], []
-    for step in range(1, c.nsteps + 1):
-        with timer.span("step"):
-            t_next = min(c.t_final, t + c.dt)
-            dt_step = t_next - t
-            t = t_next
-            X_old = state.extent
-            with timer.phase("state"):
-                T_old_q = ops.values_at_qp(T)
-                p_old_q = ops.values_at_qp(p)
-                if dn is not None:
-                    dn.set_step(inst, T_old_q, p_old_q, X_old)
-            with timer.phase("bc"):
-                Tbc = evaluate_schedule(c.schedule, t)
-                T, p = c.enforce_bc(T, p, Tbc)
-
-            if jacobian_check and step == 1:
-                rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                          dt_step, abs_tol=jc_abs,
-                                          rel_tol=jc_rel)
-                print(f"jacobian_check passed (max rel err {rel:.3e})")
-
-            nsolve0 = len(iter_factory.results) if iter_factory else 0
-            T, p, iters, ntim = run_tp_newton_loop(
-                T, p,
-                residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X_old,
-                                               dt_step),
-                factorize=lambda T, p: factorize(T, p, T_old_q, p_old_q,
-                                                 X_old, dt_step),
-                enforce_bc=lambda T, p: c.enforce_bc(T, p, Tbc),
-                newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
-                newton_csv=c.newton_csv, step=step, t=t, n=n,
-                timer=timer, print_level=newton_print_level)
-            rec = timer.step_reset()
-            # the loop's Jacobian time holds the Jacobian and the
-            # factorization, timed apart inside factorize
-            rec.update(residual=ntim["nres"], linear=ntim["nlin"],
-                       update=ntim["nupd"])
-            with timer.phase("state"):
-                state = sys_.advance_state(state, T, p, dt_step)
-            with timer.phase("output"):
-                write_outputs(step, t)
-            if step <= 5 or step % 50 == 0 or step == c.nsteps:
-                host_sync()
-                print(f"step={step} t={t:g} newton_iters={iters} "
-                      f"Tmax={float(torch.max(T)):.1f} "
-                      f"tau_min={state.tau_elem.min():.4f}")
-            rec.update({k: rec.get(k, 0.0) + v
-                        for k, v in timer.step_reset().items()})
-            timing.append(c.timing_row(step, rec))
-            newton_iters.append(iters)
-            if iter_factory is not None:
-                krylov.append([r.inner_iters
-                               for r in iter_factory.results[nsolve0:]])
-        rec["step_wall"] = timer.spans["step"]
-
-    with timer.span("run_finish"):
-        totals = {k: sum(r.get(k, 0.0) for r in timing)
-                  for k in TIMING_KEYS + ("newton", "total")}
-        c.finish(totals, _time.perf_counter() - run_t0)
-        out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
-               "fes": c.fes, "mesh": c.mesh, "converged": True,
-               "timing": timing, "newton_iters": newton_iters}
-    _run_spans(timing, timer)
-    if iter_factory is not None:
-        out["krylov_iters"] = krylov
-    return out
-
-
-def _run_spans(timing, timer):
-    """The run's set-up into its first timing row and its finish into its
-    last (seconds)."""
-    if timing:
-        timing[0]["run_setup"] = timer.spans["run_setup"]
-        timing[-1]["run_finish"] = timer.spans["run_finish"]
+    return ablation_loop.run(Case1, cfg, device, dtype, option, nranks)
 
 
 def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
@@ -550,16 +506,7 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
     with timer.span("run_setup"):
         c = Case1(cfg, device, dtype)
         sys_, ops, n = c.sys, c.ops, c.n
-        abs_tol = float(cfg.get("newton_abs_tol", 1e-8))
-        rel_tol = float(cfg.get("newton_rel_tol", 1e-6))
-        max_iter = int(cfg.get("newton_max_iter", 20))
-        stall_kw = dict(
-            stall_improve=float(cfg.get("newton_stall_improve", 1e-3)),
-            stall_patience=int(cfg.get("newton_stall_patience", 2)),
-            stall_accept_rel=float(cfg.get("newton_stall_accept_rel", 1e-3)),
-            stall_dx_rtol=cfg.get("newton_stall_dx_rtol", None),
-            stall_flat_factor=float(cfg.get("newton_stall_flat_factor",
-                                            1.15)))
+        newton_cfg = load_newton_config(cfg)
         lin_rtol = float(cfg.get("linear_rtol", 1.0e-10))
         bks = make_scan_block_solver(cfg, c.fes.element_dofs, n, c.ess,
                                      c.ess, c.fes.node_positions,
@@ -617,8 +564,7 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
                 residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X,
                                                dt),
                 solve=make_solve(T_old_q, p_old_q, X, dt, Tbc),
-                abs_tol=abs_tol, rel_tol=rel_tol, max_iter=max_iter,
-                **stall_kw)
+                config=newton_cfg)
             if not lin_ok:
                 raise RuntimeError(
                     f"block GMRES did not converge at step {step} "
@@ -659,7 +605,7 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
         wall = totals["total"]
         print(f"scan_stepping: {c.nsteps} steps in {wall:.2f}s "
               f"({wall * 1e3 / max(1, c.nsteps):.1f} ms/step)")
-    _run_spans(timing, timer)
+    run_spans(timing, timer)
     return out
 
 

@@ -35,15 +35,17 @@ table with the right shape is substituted, as in the JAX driver
   so no segmentation at branch changes is needed, and restart triggers
   land on their exact steps.
 
-Float64 only. ``sharding_devices: N`` and ``dof_partition: N`` run the eager
-loop on every rank of a world of N with the Newton iterate distributed, one
+Float64 only. The eager path is ``apps.ablation_loop``'s loop over
+``Case21``'s hooks; ``sharding_devices: N`` and ``dof_partition: N`` run it
+on every rank of a world of N with the Newton iterate distributed, one
 instance per flux branch (``apps.distributed``; rank 0 writes the files);
 ``scan_stepping`` refuses them. ``run`` returns the JAX driver's keys plus
 ``converged``, ``timing`` (per step: residual and jacobian with the SEB face
-terms inside, factorization, linear, update, state, output, total seconds),
-``newton_iters`` (linear solves per step) and, with ``jacobian_check``, its
-results (``"domain"`` and each flux branch: the max relative error, None
-where the check was skipped).
+terms inside, factorization, linear, update, state, output, total seconds;
+on the eager path the loop's spans and counts too), ``newton_iters``
+(linear solves per step) and, with ``jacobian_check``, its results
+(``"domain"`` and each flux branch: the max relative error, None where the
+check was skipped).
 """
 
 from __future__ import annotations
@@ -56,16 +58,17 @@ import time as _time
 import numpy as np
 import torch
 
-from .ablation_case1 import TIMING_KEYS, Case1
+from . import ablation_loop
+from .ablation_case1 import Case1
+from .ablation_loop import TIMING_KEYS
 from .common import (
     device_from_env, device_sync, echo_config, linear_usable,
-    load_newton_config, make_block_linear_solver, num_steps, parse_args,
-    replay_newton_history, resolve_device, run_tp_newton_loop, scan_newton,
-    NewtonStallStats,
+    load_newton_config, num_steps, parse_args, replay_newton_history,
+    resolve_device, scan_newton, NewtonStallStats,
 )
-from .distributed import DistributedNewton, run_on_ranks
+from .distributed import run_on_ranks
 from ..io import CsvWriter, writes_files
-from ..utils.timing import StepTimer
+from ..utils.timing import StepTimer, host_sync
 from ..utils.yamlcfg import load_yaml, resolve_path
 
 RESTART_MAGIC = 0x41424C32525A5441
@@ -398,6 +401,90 @@ class Case21(Case1):
 
         return write, end
 
+    # -- the eager loop's hooks (apps.ablation_loop) -------------------------
+
+    def start(self):
+        """(step, t, T, p, state) where the run starts: the initial fields,
+        or the checkpoint of ``restart_read_file``; ``nsteps`` counts the
+        steps from there."""
+        step, t = 0, 0.0
+        T, p = self.initial_fields()
+        state = self.initial_state()
+        loaded = self.load_restart()
+        if loaded is not None:
+            step, t, T, p, state = loaded
+        self.nsteps = num_steps(self.t_final - t, self.dt)
+        print(f"Time steps: {self.nsteps}, nominal final time: "
+              f"{self.t_final}")
+        return step, t, T, p, state
+
+    def stepping(self, step, t):
+        """Whether a step follows: until ``t_final``."""
+        return t < self.t_final - RESTART_TIME_TOL
+
+    def step_args(self, s):
+        return super().step_args(s) + s.bnd
+
+    def jacobians(self, T, p, T_old_q, p_old_q, X_old, dt, bc, branch,
+                  phase=None):
+        """The element blocks and the SEB face blocks (None under a
+        Dirichlet wall)."""
+        return (self.sys.element_jacobians(T, p, T_old_q, p_old_q, X_old,
+                                           dt),
+                self.face_jacobians(T, p, X_old, bc, branch))
+
+    def newton_instance(self, dn, s):
+        """(instance, face bc) of step ``s``: one instance per flux branch
+        (the branch changes the face residual), keyed "dirichlet" and with
+        no face term under a Dirichlet wall; its slabs of the step's old
+        state set."""
+        bc, branch = s.bnd
+        if self.use_dirichlet:
+            inst, bc = dn.get("dirichlet"), None
+        else:
+            inst = dn.get(branch, seb=self.seb(branch))
+        dn.set_step(inst, s.T_old_q, s.p_old_q, s.X_old)
+        return inst, bc
+
+    def check_jacobians(self, T, p, s, step, tol, results):
+        """Case 1's check, then the domain + face blocks once per flux
+        branch (``results[branch]``), None where a non-smooth state (a B'
+        table clamp) skips it."""
+        super().check_jacobians(T, p, s, step, tol, results)
+        bc, branch = s.bnd
+        if self.use_dirichlet or branch in results:
+            return
+        rel = results[branch] = self.sys.jacobian_check(
+            T, p, s.T_old_q, s.p_old_q, s.X_old, s.dt, abs_tol=tol[0],
+            rel_tol=tol[1], seb=self.seb(branch), bc=bc,
+            **self.geometry_kw(s))
+        if rel is None:
+            print(f"jacobian_check (domain+face, branch={branch}) "
+                  f"skipped: non-smooth state (B' table clamp active)")
+        else:
+            print(f"jacobian_check (domain+face, branch={branch}) "
+                  f"passed (max rel err {rel:.3e})")
+
+    def write_outputs(self, step, t, T, p, state):
+        """The probe, mass and boundary rows of time t and its ParaView
+        frame."""
+        bc, branch = self.boundary(t)
+        bvals = self.boundary_values(T, p, state.extent, bc, branch)
+        host_sync(2)
+        self.write_step(t, self.probes(T).cpu().numpy(),
+                        bvals.cpu().numpy(), state.tau_elem)
+        self.save_frame(step, t, T, p, state)
+
+    def progress(self, step, t, bnd, iters, T, state):
+        """The progress line of the first five steps and every 50th."""
+        if step <= 5 or step % 50 == 0:
+            host_sync()
+            print(f"step={step} t={t:g} [{bnd[1]}] newton_iters={iters} "
+                  f"Tmax={float(torch.max(T)):.1f}")
+
+    def results(self, step, t, metrics):
+        return {"step": step, "time": t, "bprime": self.bprime}
+
 
 def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     device = resolve_device(device)
@@ -407,160 +494,7 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
 
 
 def _run(cfg, device, dtype, option=None, nranks=0):
-    """The eager path: the host loop of one process, or of one rank of a
-    world of ``nranks`` (``option``: ``apps.distributed``)."""
-    run_t0 = _time.perf_counter()
-    c = Case21(cfg, device, dtype)
-    sys_, ops, n = c.sys, c.ops, c.n
-    newton_cfg = load_newton_config(cfg)
-    newton_print_level = int(cfg.get("newton_print_level", 1))
-    rebuild_freq = max(1, int(cfg.get("newton_jacobian_rebuild_freq", 1)))
-    jacobian_check = bool(cfg.get("jacobian_check", False))
-    jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
-    jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
-
-    dn = None
-    if nranks:
-        # one distributed Newton instance per flux branch (the branch
-        # changes the face residual), keyed "dirichlet" under a Dirichlet
-        # top; the step's old-state slabs are taken at each step start
-        iter_factory = dn = DistributedNewton(option, nranks, sys_, c.ess_T,
-                                              c.ess, cfg, device)
-    else:
-        iter_factory = make_block_linear_solver(
-            cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
-            node_positions=c.fes.node_positions, device=device)
-    timer = StepTimer(sync=device_sync(device))
-
-    def newton_inst(branch):
-        if c.use_dirichlet:
-            return dn.get("dirichlet")
-        return dn.get(branch, seb=c.seb(branch))
-
-    face_bc = lambda bc: None if c.use_dirichlet else bc
-
-    def residual(T, p, T_old_q, p_old_q, X_old, dt, bc, branch):
-        if dn is not None:
-            return dn.residual(newton_inst(branch), T, p, dt, bc=face_bc(bc))
-        return c.residual(T, p, T_old_q, p_old_q, X_old, dt, bc, branch)
-
-    def factorize(T, p, T_old_q, p_old_q, X_old, dt, bc, branch):
-        if dn is not None:
-            with timer.phase("jacobian"):
-                return dn.factorize(newton_inst(branch), T, p, dt,
-                                    bc=face_bc(bc))
-        with timer.phase("jacobian"):
-            blocks = sys_.element_jacobians(T, p, T_old_q, p_old_q, X_old,
-                                            dt)
-            face = c.face_jacobians(T, p, X_old, bc, branch)
-        with timer.phase("factorization"):
-            if iter_factory is not None:
-                return iter_factory(blocks, face=face,
-                                    face_elem=sys_.trace.elem)
-            return c.host_lu(blocks, face=face)
-
-    step, t = 0, 0.0
-    T, p = c.initial_fields()
-    state = c.initial_state()
-    loaded = c.load_restart()
-    if loaded is not None:
-        step, t, T, p, state = loaded
-    c.nsteps = num_steps(c.t_final - t, c.dt)
-    write_restart, write_restart_at_end = c.restart_writer(t)
-
-    def write_outputs(stepno, tnow):
-        bc, branch = c.boundary(tnow)
-        bvals = c.boundary_values(T, p, state.extent, bc, branch)
-        c.write_step(tnow, c.probes(T).cpu().numpy(),
-                     bvals.cpu().numpy(), state.tau_elem)
-        c.save_frame(stepno, tnow, T, p, state)
-
-    write_outputs(step, t)
-    print(f"Time steps: {c.nsteps}, nominal final time: {c.t_final}")
-    jc_results = {}
-    timing, newton_iters, krylov = [], [], []
-    while t < c.t_final - RESTART_TIME_TOL:
-        step += 1
-        t_prev = t
-        t = min(c.t_final, t + c.dt)
-        dt_step = t - t_prev
-        with timer.phase("state"):
-            T_old_q = ops.values_at_qp(T)
-            p_old_q = ops.values_at_qp(p)
-        X_old = state.extent
-        with timer.phase("bc"):
-            bc, branch = c.boundary(t)
-            T, p = c.enforce_bc(T, p, bc, t)
-        if dn is not None:
-            with timer.phase("state"):
-                dn.set_step(newton_inst(branch), T_old_q, p_old_q, X_old)
-
-        if jacobian_check and step == 1:
-            rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                      dt_step, abs_tol=jc_abs, rel_tol=jc_rel)
-            jc_results["domain"] = rel
-            print(f"jacobian_check (domain blocks) passed "
-                  f"(max rel err {rel:.3e})")
-        if jacobian_check and not c.use_dirichlet \
-                and branch not in jc_results:
-            # once per surface-flux branch, skipping non-smooth states
-            rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                      dt_step, abs_tol=jc_abs,
-                                      rel_tol=jc_rel, seb=c.seb(branch),
-                                      bc=bc)
-            jc_results[branch] = rel
-            if rel is None:
-                print(f"jacobian_check (domain+face, branch={branch}) "
-                      f"skipped: non-smooth state (B' table clamp active)")
-            else:
-                print(f"jacobian_check (domain+face, branch={branch}) "
-                      f"passed (max rel err {rel:.3e})")
-
-        nsolve0 = len(iter_factory.results) if iter_factory else 0
-        T, p, iters, ntim = run_tp_newton_loop(
-            T, p,
-            residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X_old,
-                                           dt_step, bc, branch),
-            factorize=lambda T, p: factorize(T, p, T_old_q, p_old_q, X_old,
-                                             dt_step, bc, branch),
-            enforce_bc=lambda T, p: c.enforce_bc(T, p, bc, t),
-            newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
-            newton_csv=c.newton_csv, step=step, t=t, n=n, timer=timer,
-            print_level=newton_print_level)
-        rec = timer.step_reset()
-        # the loop's Jacobian time holds the Jacobians and the
-        # factorization, timed apart inside factorize
-        rec.update(residual=ntim["nres"], linear=ntim["nlin"],
-                   update=ntim["nupd"])
-        with timer.phase("state"):
-            state = sys_.advance_state(state, T, p, dt_step)
-        with timer.phase("output"):
-            write_outputs(step, t)
-            write_restart(step, t_prev, t, T, p, state.extent)
-        rec.update({k: rec.get(k, 0.0) + v
-                    for k, v in timer.step_reset().items()})
-        timing.append(c.timing_row(step, rec))
-        newton_iters.append(iters)
-        if iter_factory is not None:
-            krylov.append([r.inner_iters
-                           for r in iter_factory.results[nsolve0:]])
-        if step <= 5 or step % 50 == 0:
-            print(f"step={step} t={t:g} [{branch}] newton_iters={iters} "
-                  f"Tmax={float(torch.max(T)):.1f}")
-
-    write_restart_at_end(step, t, T, p, state.extent)
-    totals = {k: sum(r.get(k, 0.0) for r in timing)
-              for k in TIMING_KEYS + ("newton", "total")}
-    c.finish(totals, _time.perf_counter() - run_t0)
-    out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
-           "fes": c.fes, "mesh": c.mesh, "step": step, "time": t,
-           "bprime": c.bprime, "converged": True, "timing": timing,
-           "newton_iters": newton_iters}
-    if iter_factory is not None:
-        out["krylov_iters"] = krylov
-    if jacobian_check:
-        out["jacobian_check"] = jc_results
-    return out
+    return ablation_loop.run(Case21, cfg, device, dtype, option, nranks)
 
 
 def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
@@ -586,15 +520,7 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
     run_t0 = _time.perf_counter()
     c = Case21(cfg, device, dtype)
     sys_, ops, n = c.sys, c.ops, c.n
-    abs_tol = float(cfg.get("newton_abs_tol", 1e-8))
-    rel_tol = float(cfg.get("newton_rel_tol", 1e-6))
-    max_iter = int(cfg.get("newton_max_iter", 20))
-    stall_kw = dict(
-        stall_improve=float(cfg.get("newton_stall_improve", 1e-3)),
-        stall_patience=int(cfg.get("newton_stall_patience", 2)),
-        stall_accept_rel=float(cfg.get("newton_stall_accept_rel", 1e-3)),
-        stall_dx_rtol=cfg.get("newton_stall_dx_rtol", None),
-        stall_flat_factor=float(cfg.get("newton_stall_flat_factor", 1.15)))
+    newton_cfg = load_newton_config(cfg)
     lin_rtol = float(cfg.get("linear_rtol", 1.0e-10))
     bks = make_scan_block_solver(cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
                                  c.fes.node_positions, device=device)
@@ -669,7 +595,7 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
             residual=lambda T, p: residual(T, p, T_old_q, p_old_q, X, dt,
                                            bc, branch),
             solve=make_solve(T_old_q, p_old_q, X, dt, bc, branch, t),
-            abs_tol=abs_tol, rel_tol=rel_tol, max_iter=max_iter, **stall_kw)
+            config=newton_cfg)
         if not lin_ok:
             raise RuntimeError(
                 f"block GMRES did not converge at step {step} "

@@ -35,8 +35,9 @@ package's keys and dtypes, so each package reads the other's checkpoints.
   branches on one read-back of max(v_rec) dt > 1e-16, and the diagnostics
   are read back once per output frame.
 
-Float64 only. ``sharding_devices: N`` and ``dof_partition: N`` run the eager
-loop on every rank of a world of N with the Newton iterate distributed
+Float64 only. The eager path is ``apps.ablation_loop``'s loop over
+``Case22``'s hooks. ``sharding_devices: N`` and ``dof_partition: N`` run it
+on every rank of a world of N with the Newton iterate distributed
 (``apps.distributed``; rank 0 writes the files), one instance per flux
 branch whose geometry is refreshed after every mesh move; in a spawned world
 the returned ``handler`` is None and tensors come back as numpy arrays. ``scan_stepping`` refuses both (the JAX
@@ -66,17 +67,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .ablation_case1 import TIMING_KEYS, _run_spans
-from .ablation_case2_1 import (
-    RESTART_MAGIC, RESTART_TIME_TOL, Case21,
-    load_bprime_table,
-)
+from . import ablation_loop
+from .ablation_case2_1 import RESTART_MAGIC, Case21, load_bprime_table
+from .ablation_loop import TIMING_KEYS
 from .common import (
     device_from_env, device_sync, echo_config, linear_usable,
-    load_newton_config, make_block_linear_solver,
-    moving_mesh_and_ale_toggles, num_steps, parse_args,
-    replay_newton_history, resolve_device, run_tp_newton_loop, scan_newton,
-    NewtonStallStats,
+    load_newton_config, moving_mesh_and_ale_toggles, parse_args,
+    replay_newton_history, resolve_device, scan_newton, NewtonStallStats,
 )
 from ..core.tracksample import (TrackedSampler, front_depth_from_samples,
                                 line_points)
@@ -274,6 +271,7 @@ class Case22(Case21):
     the ALE checkpoints."""
 
     NAME = "ablation_case2_2"
+    NEWTON_PRINT_MULTILINE = False
     DEFAULTS = {"material_file": "Input/material_tacot_case2_2.yaml",
                 "output_path": "ParaView/ablation_case2_2",
                 "collection_name": "ablation_test_case2_2_2D",
@@ -301,6 +299,8 @@ class Case22(Case21):
         self.rec = None
         self.recession_total = 0.0
         self.recession_history = [(0.0, 0.0)]
+        self.last_max_disp, self.last_quality_ratio = 0.0, 1.0
+        self.moved = []
 
     def _init_boundary(self, cfg):
         from ..physics.seb import SurfaceFluxModel
@@ -456,8 +456,11 @@ class Case22(Case21):
         self.dc.save(step, t, fields, vertices=vertices)
 
     def timing_row(self, step, rec):
-        # the CSV's bc_sec holds the recession phase, as the JAX driver's
-        rec["bc"] = rec.get("bc", 0.0) + rec.get("recession", 0.0)
+        # the eager path's recession is its four phases, the scan path's
+        # one; the CSV's bc_sec holds it, as the JAX driver's
+        rec.setdefault("recession", sum(rec.get(k, 0.0)
+                                        for k in RECESSION_PHASES))
+        rec["bc"] = rec.get("bc", 0.0) + rec["recession"]
         return super().timing_row(step, rec)
 
     def finish(self, totals, wall):
@@ -498,6 +501,110 @@ class Case22(Case21):
                          self.recession_total, self.recession_history,
                          elem_order=self.elem_order)
 
+    # -- the eager loop's hooks (apps.ablation_loop) -------------------------
+
+    def start(self):
+        """Case 2.1's start, the mesh handler made first (a checkpoint
+        restores it)."""
+        self.make_handler()
+        return super().start()
+
+    def move_mesh(self, timer, T, p, state, t, dt, bnd):
+        """PATO's order, before the solve: the recession velocity, the
+        Laplacian mesh velocity, the ALE remap of the extents and the move,
+        each a phase (their sum is the row's ``recession``); records the
+        move and (t, total recession).  (state with the remapped extents,
+        the step's ``StepGeometry``)."""
+        ops, rec = self.ops, self.rec
+        bc, branch = bnd
+        wq = None
+        with timer.phase("recession_velocity"):
+            J_old = ops.geometric_factors(self.vertices()).detJ \
+                if self.gcl_enabled else None
+            if rec is not None:
+                v_top = self.sys.top_boundary_recession_velocity(
+                    T, p, state, bc, branch, self.model, self.bprime,
+                    recession_density_mode=self.density_mode,
+                    recession_density_constant=self.density_constant,
+                    vertices=rec.vertices)
+        with timer.phase("mesh_velocity"):
+            if rec is not None:
+                rec.prepare_advance(v_top, dt)
+        with timer.phase("remap"):
+            if rec is not None:
+                X_new = remap_extents_ale(
+                    self.mesh, ops, state.extent,
+                    rec.mesh_velocity_at_qp(ops), dt, rec.vertices)
+                host_copy(X_new, self.device)
+                state = dataclasses.replace(state, extent=torch.as_tensor(
+                    X_new, dtype=self.dtype, device=self.device))
+        with timer.phase("mesh_move"):
+            if rec is not None:
+                out = rec.commit_advance()
+                self.recession_total = out["total_recession"]
+                self.last_max_disp = out["max_node_disp"]
+                self.last_quality_ratio = out["min_quality"]
+                wq = rec.mesh_velocity_at_qp(ops)
+            self.moved.append(rec is not None and out["delta_recession"] > 0)
+            g = self.geometry(ops._vertices(self.vertices()), wq, J_old)
+        self.recession_history.append((t, self.recession_total))
+        return state, g
+
+    def step_args(self, s):
+        return super().step_args(s) + (s.g,)
+
+    def distributed(self, option, nranks):
+        """Case 1's, with the ALE terms and the GCL storage."""
+        return DistributedNewton(option, nranks, self.sys, self.ess_T,
+                                 self.ess, self.cfg, self.device,
+                                 ale_toggles=self.ale_toggles,
+                                 gcl_enabled=self.gcl_enabled)
+
+    def newton_instance(self, dn, s):
+        """(instance, face bc) of step ``s``: the flux branch's instance on
+        the moved geometry, with its slabs of the step's old state and ALE
+        terms."""
+        bc, branch = s.bnd
+        inst = dn.get(branch, seb=self.seb(branch))
+        inst.update_geometry(s.g.verts)
+        dn.set_step(inst, s.T_old_q, s.p_old_q, s.X_old, wq=s.g.wq,
+                    gcl=s.g.gcl)
+        return inst, bc
+
+    def geometry_kw(self, s):
+        """The moved mesh of step ``s``: its factors, mesh velocity, GCL
+        pair and vertices, and the ALE switches."""
+        g = s.g
+        return dict(gf=g.gf, wq=g.wq, gcl=g.gcl,
+                    ale_toggles=self.ale_toggles, vertices=g.verts)
+
+    def write_outputs(self, step, t, T, p, state):
+        """The rows of time t sampled on the current vertices and its
+        ParaView frame (with the mesh velocity and the recession on a
+        moving mesh)."""
+        v = self.vertices()
+        self.write_step_rows(t, T, p, state, v, self.boundary(t),
+                             self.last_max_disp, self.last_quality_ratio)
+        extra = {} if self.rec is None else {
+            "mesh_velocity": self.rec.mesh_velocity,
+            "recession": np.full(self.n, self.recession_total)}
+        self.save_frame(step, t, T, p, state, vertices=v, extra=extra)
+
+    def progress(self, step, t, bnd, iters, T, state):
+        """The progress line of the first five steps and every 50th."""
+        if step <= 5 or step % 50 == 0:
+            host_sync()
+            print(f"step={step} t={t:g} [{bnd[1]}] newton_iters={iters} "
+                  f"Tmax={float(torch.max(T)):.1f} "
+                  f"recession={self.recession_total:.3e}")
+
+    def results(self, step, t, metrics):
+        return {**super().results(step, t, metrics),
+                "recession_total": self.recession_total,
+                "vertices": self.vertices().copy(), "handler": self.rec,
+                "recession_history": self.recession_history,
+                "recession_metrics": metrics, "moved": self.moved}
+
 
 def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
     device = resolve_device(device)
@@ -507,213 +614,7 @@ def run(cfg: dict, device=None, dtype=torch.float64) -> dict:
 
 
 def _run(cfg, device, dtype, option=None, nranks=0):
-    """The eager path: the host loop of one process, or of one rank of a
-    world of ``nranks`` (``option``: ``apps.distributed``)."""
-    run_t0 = _time.perf_counter()
-    timer = StepTimer(sync=device_sync(device))
-    with timer.span("run_setup"):
-        c = Case22(cfg, device, dtype)
-        sys_, ops, n = c.sys, c.ops, c.n
-        newton_cfg = load_newton_config(cfg)
-        newton_print_level = int(cfg.get("newton_print_level", 1))
-        rebuild_freq = max(1, int(cfg.get("newton_jacobian_rebuild_freq",
-                                          1)))
-        jacobian_check = bool(cfg.get("jacobian_check", False))
-        jc_abs = float(cfg.get("jacobian_check_abs_tol", 1e-6))
-        jc_rel = float(cfg.get("jacobian_check_rel_tol", 1e-4))
-        rec = c.make_handler()
-
-        dn = None
-        if nranks:
-            # one distributed Newton instance per flux branch; the current
-            # one takes the moved geometry and the step's slabs each step
-            iter_factory = dn = DistributedNewton(
-                option, nranks, sys_, c.ess_T, c.ess, cfg, device,
-                ale_toggles=c.ale_toggles, gcl_enabled=c.gcl_enabled)
-        else:
-            iter_factory = make_block_linear_solver(
-                cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
-                node_positions=c.fes.node_positions, device=device)
-        newton_inst = lambda branch: dn.get(branch, seb=c.seb(branch))
-
-        def residual(T, p, *args):
-            if dn is not None:
-                dt, bc, branch = args[3:6]
-                return dn.residual(newton_inst(branch), T, p, dt, bc=bc)
-            return c.residual(T, p, *args)
-
-        def factorize(T, p, *args):
-            if dn is not None:
-                dt, bc, branch = args[3:6]
-                with timer.phase("jacobian"):
-                    return dn.factorize(newton_inst(branch), T, p, dt,
-                                        bc=bc)
-            with timer.phase("jacobian"):
-                blocks, face = c.jacobians(T, p, *args, phase=timer.phase)
-            with timer.phase("factorization"):
-                if iter_factory is not None:
-                    return iter_factory(blocks, face=face,
-                                        face_elem=sys_.trace.elem)
-                return c.host_lu(blocks, face=face)
-
-        step, t = 0, 0.0
-        T, p = c.initial_fields()
-        state = c.initial_state()
-        loaded = c.load_restart()
-        if loaded is not None:
-            step, t, T, p, state = loaded
-        c.nsteps = num_steps(c.t_final - t, c.dt)
-        write_restart, write_restart_at_end = c.restart_writer(t)
-        last_max_disp, last_quality_ratio = 0.0, 1.0
-
-        def write_outputs(stepno, tnow):
-            v = c.vertices()
-            c.write_step_rows(tnow, T, p, state, v, c.boundary(tnow),
-                              last_max_disp, last_quality_ratio)
-            extra = {} if rec is None else {
-                "mesh_velocity": rec.mesh_velocity,
-                "recession": np.full(n, c.recession_total)}
-            c.save_frame(stepno, tnow, T, p, state, vertices=v, extra=extra)
-
-        write_outputs(step, t)
-        print(f"Time steps: {c.nsteps}, nominal final time: {c.t_final}")
-    # the rows are the steps': what the set-up counted is dropped
-    timer.step_reset()
-    jc_results = {}
-    timing, newton_iters, krylov, moved = [], [], [], []
-    while t < c.t_final - RESTART_TIME_TOL:
-        with timer.span("step"):
-            step += 1
-            t_prev = t
-            t = min(c.t_final, t + c.dt)
-            dt_step = t - t_prev
-            bc, branch = c.boundary(t)
-
-            # -- recession (PATO's order: before the solve) ----------------
-            wq = None
-            with timer.phase("recession_velocity"):
-                J_old = ops.geometric_factors(c.vertices()).detJ \
-                    if c.gcl_enabled else None
-                if rec is not None:
-                    v_top = sys_.top_boundary_recession_velocity(
-                        T, p, state, bc, branch, c.model, c.bprime,
-                        recession_density_mode=c.density_mode,
-                        recession_density_constant=c.density_constant,
-                        vertices=rec.vertices)
-            with timer.phase("mesh_velocity"):
-                if rec is not None:
-                    rec.prepare_advance(v_top, dt_step)
-            with timer.phase("remap"):
-                if rec is not None:
-                    X_new = remap_extents_ale(
-                        c.mesh, ops, state.extent,
-                        rec.mesh_velocity_at_qp(ops), dt_step, rec.vertices)
-                    host_copy(X_new, device)
-                    state = dataclasses.replace(state, extent=torch.as_tensor(
-                        X_new, dtype=c.dtype, device=device))
-            with timer.phase("mesh_move"):
-                if rec is not None:
-                    out = rec.commit_advance()
-                    c.recession_total = out["total_recession"]
-                    last_max_disp = out["max_node_disp"]
-                    last_quality_ratio = out["min_quality"]
-                    wq = rec.mesh_velocity_at_qp(ops)
-                moved.append(rec is not None and out["delta_recession"] > 0)
-                g = c.geometry(ops._vertices(c.vertices()), wq, J_old)
-            X_old = state.extent
-            with timer.phase("state"):
-                T_old_q = ops.values_at_qp(T)
-                p_old_q = ops.values_at_qp(p)
-                if dn is not None:
-                    inst = newton_inst(branch)
-                    inst.update_geometry(g.verts)
-                    dn.set_step(inst, T_old_q, p_old_q, X_old, wq=g.wq,
-                                gcl=g.gcl)
-            with timer.phase("bc"):
-                T, p = c.enforce_bc(T, p, bc, t)
-            args = (T_old_q, p_old_q, X_old, dt_step, bc, branch, g)
-            geo_kw = dict(gf=g.gf, wq=g.wq, gcl=g.gcl,
-                          ale_toggles=c.ale_toggles)
-
-            if jacobian_check and step == 1:
-                rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                          dt_step, abs_tol=jc_abs,
-                                          rel_tol=jc_rel, **geo_kw)
-                jc_results["domain"] = rel
-                print(f"jacobian_check (domain blocks) passed "
-                      f"(max rel err {rel:.3e})")
-            if jacobian_check and branch not in jc_results:
-                # once per surface-flux branch, skipping non-smooth states
-                rel = sys_.jacobian_check(T, p, T_old_q, p_old_q, X_old,
-                                          dt_step, abs_tol=jc_abs,
-                                          rel_tol=jc_rel, seb=c.seb(branch),
-                                          bc=bc, vertices=g.verts, **geo_kw)
-                jc_results[branch] = rel
-                if rel is None:
-                    print(f"jacobian_check (domain+face, branch={branch}) "
-                          f"skipped: non-smooth state (B' table clamp "
-                          f"active)")
-                else:
-                    print(f"jacobian_check (domain+face, branch={branch}) "
-                          f"passed (max rel err {rel:.3e})")
-
-            nsolve0 = len(iter_factory.results) if iter_factory else 0
-            T, p, iters, ntim = run_tp_newton_loop(
-                T, p,
-                residual=lambda T, p: residual(T, p, *args),
-                factorize=lambda T, p: factorize(T, p, *args),
-                enforce_bc=lambda T, p: c.enforce_bc(T, p, bc, t),
-                newton_cfg=newton_cfg, rebuild_freq=rebuild_freq,
-                newton_csv=c.newton_csv, step=step, t=t, n=n, timer=timer,
-                print_level=newton_print_level, print_multiline=False)
-            rec_t = timer.step_reset()
-            # the loop's Jacobian time holds the Jacobians and the
-            # factorization, timed apart inside factorize; the recession is
-            # its four phases
-            rec_t.update(residual=ntim["nres"], linear=ntim["nlin"],
-                         update=ntim["nupd"],
-                         recession=sum(rec_t.get(k, 0.0)
-                                       for k in RECESSION_PHASES))
-            with timer.phase("state"):
-                state = sys_.advance_state(state, T, p, dt_step)
-            with timer.phase("output"):
-                write_outputs(step, t)
-                c.recession_history.append((t, c.recession_total))
-                write_restart(step, t_prev, t, T, p, state.extent)
-            if step <= 5 or step % 50 == 0:
-                host_sync()
-                print(f"step={step} t={t:g} [{branch}] newton_iters={iters} "
-                      f"Tmax={float(torch.max(T)):.1f} "
-                      f"recession={c.recession_total:.3e}")
-            rec_t.update({k: rec_t.get(k, 0.0) + v
-                          for k, v in timer.step_reset().items()})
-            timing.append(c.timing_row(step, rec_t))
-            newton_iters.append(iters)
-            if iter_factory is not None:
-                krylov.append([r.inner_iters
-                               for r in iter_factory.results[nsolve0:]])
-        rec_t["step_wall"] = timer.spans["step"]
-
-    with timer.span("run_finish"):
-        write_restart_at_end(step, t, T, p, state.extent)
-        totals = {k: sum(r.get(k, 0.0) for r in timing)
-                  for k in TIMING_KEYS + ("newton", "total")}
-        metrics = c.finish(totals, _time.perf_counter() - run_t0)
-        host_sync(2)
-        out = {"T": T.cpu().numpy(), "p": p.cpu().numpy(), "state": state,
-               "fes": c.fes, "mesh": c.mesh, "step": step, "time": t,
-               "bprime": c.bprime, "recession_total": c.recession_total,
-               "vertices": c.vertices().copy(), "handler": rec,
-               "recession_history": c.recession_history,
-               "recession_metrics": metrics, "converged": True,
-               "timing": timing, "newton_iters": newton_iters,
-               "moved": moved}
-    _run_spans(timing, timer)
-    if iter_factory is not None:
-        out["krylov_iters"] = krylov
-    if jacobian_check:
-        out["jacobian_check"] = jc_results
-    return out
+    return ablation_loop.run(Case22, cfg, device, dtype, option, nranks)
 
 
 class ScanMotion:
@@ -880,15 +781,7 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
     run_t0 = _time.perf_counter()
     c = Case22(cfg, device, dtype)
     sys_, ops, n = c.sys, c.ops, c.n
-    abs_tol = float(cfg.get("newton_abs_tol", 1e-8))
-    rel_tol = float(cfg.get("newton_rel_tol", 1e-6))
-    max_iter = int(cfg.get("newton_max_iter", 20))
-    stall_kw = dict(
-        stall_improve=float(cfg.get("newton_stall_improve", 1e-3)),
-        stall_patience=int(cfg.get("newton_stall_patience", 2)),
-        stall_accept_rel=float(cfg.get("newton_stall_accept_rel", 1e-3)),
-        stall_dx_rtol=cfg.get("newton_stall_dx_rtol", None),
-        stall_flat_factor=float(cfg.get("newton_stall_flat_factor", 1.15)))
+    newton_cfg = load_newton_config(cfg)
     lin_rtol = float(cfg.get("linear_rtol", 1.0e-10))
     bks = make_scan_block_solver(cfg, c.fes.element_dofs, n, c.ess_T, c.ess,
                                  c.fes.node_positions, device=device)
@@ -969,8 +862,7 @@ def run_scan(cfg: dict, device=None, dtype=torch.float64) -> dict:
         (T, p, it, r0, rn, done, res_h, upd_h, lin_ok,
          nw_stalled) = scan_newton(
             T, p, residual=lambda T, p: residual(T, p, *args),
-            solve=make_solve(*args[:-1], t, g), abs_tol=abs_tol,
-            rel_tol=rel_tol, max_iter=max_iter, **stall_kw)
+            solve=make_solve(*args[:-1], t, g), config=newton_cfg)
         if not lin_ok:
             raise RuntimeError(
                 f"block GMRES did not converge at step {k} "

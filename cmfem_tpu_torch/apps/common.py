@@ -286,19 +286,19 @@ def device_sync(device):
     return lambda: None
 
 
-def scan_newton(T, p, *, residual, solve, abs_tol, rel_tol, max_iter,
-                stall_improve=1e-3, stall_patience=2,
-                stall_accept_rel=1e-3, stall_dx_rtol=None,
-                stall_flat_factor=1.15):
+def scan_newton(T, p, *, residual, solve, config):
     """The device-resident Newton loop of the ablation scan paths (the
     JAX package's ``lax.while_loop``, here a host loop over device tensors
     that reads back one scalar per iteration: whether it is done).
 
     ``residual(T, p) -> R`` (BC-masked stacked residual) and
     ``solve(T, p, R) -> (T_new, p_new, |dx|, lin_ok)`` close over the
-    step's frozen inputs.  Reference semantics — r0 = max(1, |R0|),
+    step's frozen inputs; ``config`` is the ``NewtonConfig``
+    (``load_newton_config``).  Reference semantics — r0 = max(1, |R0|),
     abs/rel tolerance, at most ``max_iter`` residual checks/solves — plus
-    the working-precision stall exits of ``NewtonConfig`` (patience
+    the working-precision stall exits of ``NewtonConfig`` as tensors, so
+    that no exit test syncs (``solvers.newton.StallWindow`` keeps them on
+    host floats for the eager loops; patience
     ``stall_patience`` non-improving residuals, then any of: rn/r0 <
     stall_accept_rel; |dx| <= stall_dx_rtol |[T;p]| (default 30 eps); the
     residual flat within ``stall_flat_factor`` of its best over the window
@@ -310,9 +310,11 @@ def scan_newton(T, p, *, residual, solve, abs_tol, rel_tol, max_iter,
     the newton CSV replay; ``iters`` counts residual checks (one more than
     the linear solves when done)."""
     dev, dtype = T.device, T.dtype
+    c, max_iter = config, config.max_iter
+    stall_dx_rtol = c.stall_dx_rtol
     if stall_dx_rtol is None:
         stall_dx_rtol = 30.0 * float(torch.finfo(dtype).eps)
-    flat_enabled = float(stall_flat_factor) > 1.0
+    flat_enabled = float(c.stall_flat_factor) > 1.0
     scal = lambda v: torch.tensor(v, dtype=dtype, device=dev)
     res_h = torch.full((max_iter + 1,), float("nan"), dtype=dtype, device=dev)
     upd_h = res_h.clone()
@@ -331,18 +333,18 @@ def scan_newton(T, p, *, residual, solve, abs_tol, rel_tol, max_iter,
         if it == 0:
             r0 = torch.clamp(rn, min=1.0)
         rbest_pre = rbest
-        improved = rn < (1.0 - stall_improve) * rbest
+        improved = rn < (1.0 - c.stall_improve) * rbest
         noimp = torch.where(improved, 0, noimp + 1)
         # max residual over the current non-improving window
         rmax = torch.where(improved, rn, torch.maximum(rmax, rn))
         rbest = torch.minimum(rbest, rn)
         xnorm = torch.sqrt(torch.sum(T * T) + torch.sum(p * p))
-        flat_ok = (rmax <= stall_flat_factor * rbest_pre) & lin_ok \
+        flat_ok = (rmax <= c.stall_flat_factor * rbest_pre) & lin_ok \
             if flat_enabled else False
-        stalled = (noimp >= stall_patience) & (
-            (rn / r0 < stall_accept_rel)
+        stalled = (noimp >= c.stall_patience) & (
+            (rn / r0 < c.stall_accept_rel)
             | (un_prev <= stall_dx_rtol * xnorm) | flat_ok)
-        tol_done = (rn < abs_tol) | (rn / r0 < rel_tol)
+        tol_done = (rn < c.abs_tol) | (rn / r0 < c.rel_tol)
         was_stalled = was_stalled | (stalled & ~tol_done)
         res_h[it] = rn
         it += 1
@@ -432,6 +434,8 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
     raises RuntimeError on non-convergence."""
     import time as _time
 
+    from ..solvers.newton import StallWindow
+
     spans = timer.spans
     nres = njac = nlin = nupd = 0.0
     r0 = du0 = 1.0
@@ -439,18 +443,7 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
     iters = 0
     final_res = np.inf
     lu = None
-    rbest = np.inf
-    rmax = np.inf
-    noimp = 0
-    un_prev = np.inf
-    stall_improve = getattr(newton_cfg, "stall_improve", 1e-3)
-    stall_patience = getattr(newton_cfg, "stall_patience", 2)
-    stall_accept = getattr(newton_cfg, "stall_accept_rel", 1e-3)
-    stall_flat = getattr(newton_cfg, "stall_flat_factor", 1.15)
-    flat_enabled = float(stall_flat) > 1.0
-    stall_dx_rtol = getattr(newton_cfg, "stall_dx_rtol", None)
-    if stall_dx_rtol is None:
-        stall_dx_rtol = 30.0 * float(torch.finfo(T.dtype).eps)
+    window = StallWindow(newton_cfg, T.dtype)
     for it in range(newton_cfg.max_iter):
         with timer.span("residual"):
             R = residual(T, p)
@@ -461,20 +454,11 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
             r0 = max(1.0, res_norm)
         rel_res = res_norm / r0
         final_res = res_norm
-        # window MAXIMUM vs the pre-update best, so an oscillating
-        # divergence never flat-exits on a dip; every linear solve here
-        # passed check_linear_result, satisfying the usable-solve gate
-        rbest_pre = rbest
-        improved = res_norm < (1.0 - stall_improve) * rbest
-        noimp = 0 if improved else noimp + 1
-        rmax = res_norm if improved else max(rmax, res_norm)
-        rbest = min(rbest, res_norm)
+        # every linear solve here passed check_linear_result, satisfying
+        # the flat exit's usable-solve gate
         host_sync()
-        xnorm = float(torch.sqrt(torch.sum(T * T) + torch.sum(p * p)))
-        flat_ok = flat_enabled and rmax <= stall_flat * rbest_pre
-        stalled = noimp >= stall_patience and (
-            rel_res < stall_accept or un_prev <= stall_dx_rtol * xnorm
-            or flat_ok)
+        stalled = window.update(res_norm, rel_res, float(
+            torch.sqrt(torch.sum(T * T) + torch.sum(p * p))))
         if res_norm < newton_cfg.abs_tol or rel_res < newton_cfg.rel_tol \
                 or stalled:
             converged = True
@@ -492,7 +476,7 @@ def run_tp_newton_loop(T, p, *, residual, factorize, enforce_bc,
             un = float(torch.linalg.vector_norm(dx))
         nlin += spans["linear"]
         with timer.span("update"):
-            un_prev = un
+            window.un_prev = un
             if it == 0:
                 du0 = max(1.0, un)
             T, p = enforce_bc(T + dx[:n], p + dx[n:])

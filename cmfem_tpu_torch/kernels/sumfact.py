@@ -7,9 +7,7 @@ tensor it launches the hand-written lane kernel of ``csrc/sumfact_fused.cu``
 z-periodic Dz and ``_bind_fused`` on the full D, the TPU's fused Pallas
 kernels) in one launch over all elements; on a CPU tensor it runs
 ``sumfact_chain``, the plain PyTorch version.  There is no fallback from one
-to the other.  ``sumfact_apply_colour`` launches the earlier design of the
-same source (8 parity-colour launches); only the comparison in
-``chip_smoke.py`` calls it.
+to the other.
 """
 
 from __future__ import annotations
@@ -27,12 +25,10 @@ SOURCES = ["sumfact_fused.cu"]
 WARPS_PER_BLOCK = 8
 
 # Calls of ``sumfact_apply`` that launched the kernel, and those of them that
-# read the full D rather than the z-periodic Dz; calls of
-# ``sumfact_apply_colour`` that launched the colour design (its 8 passes count
-# once).  Plain-version calls do not count.
+# read the full D rather than the z-periodic Dz.  Plain-version calls do not
+# count.
 launches = 0
 launches_fulld = 0
-launches_colour = 0
 
 
 def sumfact_chain(u, D, mats, periodic: bool):
@@ -95,12 +91,6 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
             + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for fn in (lib.cmfem_sumfact_apply_colour_f32,
-               lib.cmfem_sumfact_apply_colour_f64):
-        # u, D, tab, y, p, nx, ny, nz, z_periodic, stream
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     lib.cmfem_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cmfem_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -112,7 +102,7 @@ def build():
 
 
 def _checked_shape(name, u, D, tab, mats, periodic):
-    """(p, nx, ny, nz) of a CUDA call; raises on anything the kernels do
+    """(p, nx, ny, nz) of a CUDA call; raises on anything the kernel does
     not take."""
     if u.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {u.device}")
@@ -178,17 +168,3 @@ def sumfact_apply(u, D, tab, mats, periodic: bool):
         launches_fulld += 1
     return y
 
-
-def sumfact_apply_colour(u, D, tab, mats, periodic: bool):
-    """``sumfact_apply`` through the earlier colour design (8 launches, one
-    per parity colour of the element index; deterministic sums); the plain
-    version on CPU.  For comparison only: no operator binds it."""
-    global launches_colour
-    if u.device.type == "cpu":
-        return sumfact_chain(u, D, mats, periodic)
-    p, nx, ny, nz = _checked_shape("sumfact_apply_colour", u, D, tab, mats,
-                                   periodic)
-    y = _launch("cmfem_sumfact_apply_colour", "sumfact colour", u, D, tab, p,
-                nx, ny, nz, int(periodic))
-    launches_colour += 1
-    return y

@@ -103,6 +103,40 @@ class NewtonResult:
     stalled: bool = False
 
 
+class StallWindow:
+    """The working-precision stall exits of ``NewtonConfig`` on host floats,
+    for the host Newton loops (``newton_solve``, ``apps.common``'s
+    ``run_tp_newton_loop``; ``scan_newton`` keeps them as device tensors).
+    ``update`` takes each residual check and says whether the iterate
+    stalled at the floor; ``un_prev`` holds the last update's norm."""
+
+    def __init__(self, config: NewtonConfig, dtype):
+        self.config = config
+        self.dx_rtol = config.stall_dx_rtol
+        if self.dx_rtol is None:
+            self.dx_rtol = 30.0 * float(torch.finfo(dtype).eps)
+        self.rbest = self.rmax = self.un_prev = float("inf")
+        self.noimp = 0
+
+    def update(self, res_norm, rel_res, xnorm):
+        """Absorb the residual norm ``res_norm`` (``rel_res`` relative) of
+        the iterate of norm ``xnorm``; True when it stalled."""
+        c = self.config
+        rbest_pre = self.rbest
+        improved = res_norm < (1.0 - c.stall_improve) * self.rbest
+        self.noimp = 0 if improved else self.noimp + 1
+        # max residual over the current non-improving window, against the
+        # best before this one: an oscillating divergence never flat-exits
+        # on a dip
+        self.rmax = res_norm if improved else max(self.rmax, res_norm)
+        self.rbest = min(self.rbest, res_norm)
+        flat_ok = (c.stall_flat_factor > 1.0
+                   and self.rmax <= c.stall_flat_factor * rbest_pre)
+        return self.noimp >= c.stall_patience and (
+            rel_res < c.stall_accept_rel
+            or self.un_prev <= self.dx_rtol * xnorm or flat_ok)
+
+
 def _sync(t):
     """Wait for the device behind a CUDA tensor, so that a phase's
     wall-clock time is the phase's (``jax.block_until_ready``)."""
@@ -133,14 +167,7 @@ def newton_solve(
     du0 = 1.0
     jac_state = None
     freq = max(1, config.jacobian_rebuild_freq)
-    rbest = float("inf")
-    rmax = float("inf")
-    noimp = 0
-    un_prev = float("inf")
-    stall_dx_rtol = config.stall_dx_rtol
-    if stall_dx_rtol is None:
-        stall_dx_rtol = 30.0 * float(torch.finfo(x.dtype).eps)
-    flat_enabled = config.stall_flat_factor > 1.0
+    window = StallWindow(config, x.dtype)
 
     for it in range(config.max_iter):
         t0 = _time.perf_counter()
@@ -156,20 +183,8 @@ def newton_solve(
         result.final_residual = res_norm
         result.final_relative_residual = rel_res
 
-        rbest_pre = rbest
-        improved = res_norm < (1.0 - config.stall_improve) * rbest
-        noimp = 0 if improved else noimp + 1
-        # max residual over the current non-improving window: an
-        # oscillating divergence never flat-exits on a dip
-        rmax = res_norm if improved else max(rmax, res_norm)
-        rbest = min(rbest, res_norm)
-        xnorm = float(torch.linalg.vector_norm(x))
-        flat_ok = (flat_enabled
-                   and rmax <= config.stall_flat_factor * rbest_pre)
-        stalled = (noimp >= config.stall_patience
-                   and (rel_res < config.stall_accept_rel
-                        or un_prev <= stall_dx_rtol * xnorm
-                        or flat_ok))
+        stalled = window.update(res_norm, rel_res,
+                                float(torch.linalg.vector_norm(x)))
         tol_done = res_norm < config.abs_tol or rel_res < config.rel_tol
 
         if tol_done or stalled:
@@ -199,7 +214,7 @@ def newton_solve(
 
         t0 = _time.perf_counter()
         update_norm = float(torch.linalg.vector_norm(dx))
-        un_prev = update_norm
+        window.un_prev = update_norm
         if it == 0:
             du0 = max(1.0, update_norm)
             result.initial_update_norm = du0

@@ -260,3 +260,48 @@ def test_newton_default_dx_rtol_is_30_eps_of_the_dtype():
                             stall_accept_rel=0.0, stall_flat_factor=1.0),
         rebuild_jacobian=lambda x: A + torch.diag(3.0 * x ** 2))
     assert x.dtype == torch.float32 and res.converged and res.stalled
+
+
+@pytest.mark.parametrize("exit_,res_seq,upd,cfg_kw,checks", [
+    # below stall_accept_rel (5e-4 of r0 = 10), then two checks unimproved
+    ("accept_rel", [10.0, 1.0] + [5e-3] * 10, 1.0,
+     {"stall_flat_factor": 1.0, "stall_dx_rtol": 0.0}, 5),
+    # the last update negligible against |[T; p]| (30 eps by default)
+    ("dx", [10.0] + [8.0] * 11, 1e-20,
+     {"stall_accept_rel": 0.0, "stall_flat_factor": 1.0}, 4),
+    # flat within 1.15 of its best for two checks
+    ("flat", [10.0, 1.0, 1.0, 1.05] + [1.02] * 8, 1.0,
+     {"stall_accept_rel": 0.0, "stall_dx_rtol": 1e-300}, 4),
+    # an oscillation above 1.15 of the best never stalls: the cap
+    ("oscillating", [10.0, 1.0, 1.0, 5.0, 1.1] * 3, 1.0,
+     {"stall_accept_rel": 0.0, "stall_dx_rtol": 1e-300}, 12),
+])
+def test_host_and_scan_stall_rules_agree(exit_, res_seq, upd, cfg_kw,
+                                         checks):
+    """``StallWindow`` (the host loops' rule) and ``scan_newton``'s tensor
+    rule stop a scripted residual history at the same check, stalled or
+    at the cap alike."""
+    from cmfem_tpu_torch.apps.common import scan_newton
+
+    cfg = newton.NewtonConfig(abs_tol=1e-30, rel_tol=1e-30, max_iter=12,
+                              **cfg_kw)
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    T, p = f64([1.0, 1.0]), f64([0.0, 0.0])
+    calls = []
+
+    def residual(T, p):
+        calls.append(None)
+        return f64([res_seq[len(calls) - 1]])
+
+    out = scan_newton(T, p, residual=residual,
+                      solve=lambda T, p, R: (T, p, f64(upd), True),
+                      config=cfg)
+    window = newton.StallWindow(cfg, torch.float64)
+    for k, rn in enumerate(res_seq[:cfg.max_iter]):
+        stalled = window.update(rn, rn / max(1.0, res_seq[0]),
+                                float(np.sqrt(2.0)))
+        if stalled:
+            break
+        window.un_prev = upd
+    assert (out[2], out[5], bool(out[9])) == (k + 1, stalled, stalled)
+    assert k + 1 == checks and stalled == (exit_ != "oscillating")

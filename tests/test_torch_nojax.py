@@ -57,6 +57,7 @@ def test_every_port_module_imports_without_jax():
             "cmfem_tpu_torch.ops.lattice2d",
             "cmfem_tpu_torch.solvers.blocksolve",
             "cmfem_tpu_torch.apps.ablation_case1",
+            "cmfem_tpu_torch.apps.ablation_loop",
             "cmfem_tpu_torch.physics.surface_bc",
             "cmfem_tpu_torch.physics.bprime", "cmfem_tpu_torch.physics.seb",
             "cmfem_tpu_torch.apps.ablation_case2_1",

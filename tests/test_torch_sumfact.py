@@ -281,11 +281,10 @@ def cuda():
 def test_cuda_kernel_matches_plain(cuda, n, order, form):
     """Uniform D: z-periodic and full D; D varying by element (kappa(z),
     and the distorted lattice): the full-D launch.  (7,5,9) is ragged: nx
-    is not a multiple of the elements per block.  Also: the colour design
-    (``sumfact_apply_colour``) against the lane kernel, and two calls of
-    the lane kernel against each other (its atomic sums on shared DOFs are
+    is not a multiple of the elements per block.  Also: two calls of the
+    lane kernel against each other (its atomic sums on shared DOFs are
     taken in an order that can change between calls), to the same
-    tolerances."""
+    tolerance."""
     if form == "uniform":
         jops, jdata, ops, data = _forms(n, order)
     else:
@@ -303,15 +302,11 @@ def test_cuda_kernel_matches_plain(cuda, n, order, form):
                 before[0] + 1, before[1] + (not periodic))
             fp, Dp = op.bind(use_periodic=periodic)
             yp = fp(u, Dp)
-            colours = ksum.launches_colour
-            yc = ksum.sumfact_apply_colour(u, Dk, op.tab, op._mats, periodic)
-            assert ksum.launches_colour == colours + 1
             y2 = fk(u, Dk)
             torch.cuda.synchronize()
             scale = yp.abs().max()
-            for what, y in (("lane", yk), ("colour", yc)):
-                err = float((y - yp).abs().max() / scale)
-                assert err <= tol, (what, dtype, periodic, err)
+            err = float((yk - yp).abs().max() / scale)
+            assert err <= tol, ("lane", dtype, periodic, err)
             err = float((y2 - yk).abs().max() / scale)
             assert err <= tol, ("two lane calls", dtype, periodic, err)
         assert op.best_bind()[2] == ("cuda-sumfact-zperiodic"
@@ -334,5 +329,3 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         ksum.sumfact_apply(u.half(), op.Dz.half(), op.tab.half(), op._mats,
                            True)
-    with pytest.raises(ValueError):  # the colour entry checks the same
-        ksum.sumfact_apply_colour(u, op.D, op.tab, op._mats, True)

@@ -202,18 +202,3 @@ def test_lane_emulation_matches_jax_b2():
     y_ref = np.asarray(jf(jnp.asarray(u), jD))
     y = emulate(u, op.Dz.numpy(), op.tab.numpy(), n, order, True)
     assert np.abs(y - y_ref).max() <= 1e-12 * np.abs(y_ref).max()
-
-
-def test_colour_wrapper_on_cpu_uses_the_plain_version():
-    op = _operator((3, 4, 5), 2, "uniform")
-    u = torch.as_tensor(np.random.default_rng(1).standard_normal(op.ndofs))
-    before = ksum.launches, ksum.launches_colour
-    for periodic in (True, False):
-        D = op.Dz if periodic else op.D
-        y = ksum.sumfact_apply_colour(u, D, op.tab, op._mats, periodic)
-        torch.testing.assert_close(
-            y, ksum.sumfact_chain(u, D, op._mats, periodic), rtol=0, atol=0)
-    assert (ksum.launches, ksum.launches_colour) == before
-    with pytest.raises(ValueError, match="unsupported device"):
-        ksum.sumfact_apply_colour(u.to("meta"), op.D.to("meta"), op.tab,
-                                  op._mats, False)
